@@ -6,23 +6,57 @@
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. Device: the card's name and power limit (``nvidia-smi``).
-2. Build: every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a.
-3. Kernel vs plain version on the card: ``hedm_reduce`` against its plain
-   PyTorch version at the test shapes (float32 and uint16) and at
-   (8, 2048, 2048); masks and counts must be equal (``torch.equal``). Then
-   the main path's stages on a small scan against the CPU: stage 1 bit for
-   bit, stage 2 within 1e-4 on recovered points.
-4. The main path: ``repro_torch.hedm.interactive.main`` at the paper's
-   size, 736 frames of 2048x2048 and 100,000 grid points, with the launch
-   counts set to 0 just before and read just after.
-5. Timing: the kernel at (736, 2048, 2048) float32 (CUDA events, median of
-   20 launches after warm-up) beside its HBM bound and its plain version,
-   which is first held equal to the kernel on all 736 frames.
+2. Build: every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
+   nvcc per source, all started together.
+3. Kernels vs their plain versions on the card. ``hedm_reduce`` at the test
+   shapes (float32 and uint16) and at (8, 2048, 2048): masks and counts
+   equal (``torch.equal``). ``flash_attention`` at the shapes of
+   tests/test_kernels.py in float32 and bfloat16, at ragged S (100, 200),
+   at the zamba2 prefill shape (1, 2048, 32 heads, 32 kv, hd 112) and a
+   danube3-like GQA shape with a window (1, 2048, 32, 8, 120, window
+   1024). ``mamba2_scan`` at the shapes of tests/test_kernels.py, a ragged
+   L (100) and the zamba2 prefill shape (1, 2048, 112 heads, P 64, G 1,
+   N 64). Both also at the path's widths and every prompt length the LM
+   main path (phase 8) draws, in bfloat16: each of those prefills has a
+   ragged last tile and chunk. Float32 within 3e-5 (attention) and 2e-4
+   (scan) of the plain version; bfloat16 against the plain version run in
+   float32 on the same bf16 inputs, within 1e-3 (attention) or 2e-2 (scan)
+   plus one bf16 rounding step, 2^-7 |ref|, of each output value. Then
+   the NF-HEDM path's stages on a small scan against the CPU: stage 1 bit
+   for bit, stage 2 within 1e-4.
+4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
+   paper's size, 736 frames of 2048x2048 and 100,000 grid points.
+5. Timing of ``hedm_reduce`` at (736, 2048, 2048) float32 (CUDA events,
+   median of 20 launches after warm-up) beside its HBM bound and its plain
+   version, which is first held equal to the kernel on all 736 frames.
+6. Serving on the card against the CPU at smoke size: zamba2-7b and
+   h2o-danube3-4b smoke configs in float32, the same seed-made weights on
+   both devices; prefill logits and one decode step within 1e-4 relative,
+   and a 4-request ``ServeSession`` with identical token ids.
+7. Prefill + decode == forward at full width: zamba2-7b at d_model 3584
+   with 12 layers (2 shared-attention sites), float32 on the card, S=1024;
+   relative error < 5e-3 (tests/test_serve.py's bound).
+8. The LM main path: ``repro_torch.launch.serve.main``, zamba2-7b at full
+   width and depth (81 layers), bf16, random weights from seed 0; 8
+   requests with prompts of 256..2048 tokens (numpy seed 0), 32 new tokens
+   each, 4 slots, capacity 4096. Every logit finite; ``flash_attention``
+   launched 8 x 13 and ``mamba2_scan`` 8 x 81 times. Then the drained
+   session serves its first four prompts again under ``torch.profiler``:
+   the step that admits them (4 prefills, 1 decode step) and the 4 decode
+   steps after it give the card's busy share (kernel time over wall time).
+9. Timing of ``flash_attention`` and ``mamba2_scan`` at the path's shapes
+   (S = L = 2048, bf16), median of 20 launches by CUDA events after
+   warm-up, beside each one's bound, its plain version and, for attention,
+   ``torch.nn.functional.scaled_dot_product_attention`` (the port never
+   calls it).
 
-The last three lines of standard output are the card's ``nvidia-smi`` line,
-the ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
+Each main path (4 and 8) runs with every launch count set to 0 just before
+and read just after. The last three lines of standard output are the
+card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and
+``{"ok": true, "device": {...}}``.
 """
 import argparse
+import gc
 import json
 import os
 import resource
@@ -35,6 +69,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 # fp32 operations per pixel: subtract, clamp, 19 min/max exchanges (38),
 # Laplacian (7 adds, 1 mul, 1 sub), two compares, one and, one count add
 HEDM_OPS_PER_PIXEL = 53
@@ -96,6 +131,299 @@ def time_ms(torch, fn, reps, warmup=2):
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
+# flash_attention checks: (B, S, H, KV, hd, causal, window), types
+BOTH = ("float32", "bfloat16")
+FLASH_CHECKS = [
+    *[(shape, BOTH) for shape in [            # tests/test_kernels.py:17-23
+        (2, 256, 8, 4, 64, True, 0), (1, 256, 4, 4, 128, True, 64),
+        (2, 128, 8, 2, 32, False, 0), (1, 512, 8, 8, 64, True, 0),
+        (1, 256, 16, 4, 64, True, 128)]],
+    ((1, 100, 4, 2, 112, True, 0), BOTH),     # ragged S
+    ((1, 200, 8, 2, 120, True, 48), BOTH),
+    ((1, 2048, 32, 32, 112, True, 0), ("bfloat16",)),   # zamba2 prefill
+    ((1, 2048, 32, 8, 120, True, 1024), ("bfloat16",)),  # danube3-like GQA
+]
+# mamba2_scan checks: (B, L, H, P, G, N, chunk), types
+SCAN_CHECKS = [
+    *[(shape, BOTH) for shape in [            # tests/test_kernels.py:59-63
+        (2, 128, 4, 16, 2, 8, 32), (1, 64, 2, 32, 1, 16, 16),
+        (1, 256, 8, 16, 8, 8, 64)]],
+    ((1, 100, 4, 16, 2, 8, 32), BOTH),        # ragged L
+    ((1, 2048, 112, 64, 1, 64, 128), ("bfloat16",)),    # zamba2 prefill
+]
+PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
+PATH_SCAN = (1, 2048, 112, 64, 1, 64, 128)
+FLASH_ATOL = {"float32": 3e-5, "bfloat16": 1e-3}
+SCAN_ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
+BF16_STEP = 2.0 ** -7          # one rounding step of a bf16 output, relative
+
+
+def path_checks(lengths):
+    """The LM main path's kernel shapes at each of its prompt lengths."""
+    *fw, causal, win = PATH_FLASH
+    B, _, H, P, G, N, chunk = PATH_SCAN
+    return ([((fw[0], n, *fw[2:], causal, win), ("bfloat16",))
+             for n in lengths],
+            [((B, n, H, P, G, N, chunk), ("bfloat16",)) for n in lengths])
+
+
+def flash_inputs(np, torch, shape, dtype, dev, seed=0):
+    B, S, H, KV, hd = shape[:5]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev).to(getattr(torch, dtype))
+            for s in [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)]]
+
+
+def scan_inputs(np, torch, shape, dtype, dev, seed=0):
+    """The distributions of tests/test_kernels.py: x, B, C normal, dt =
+    softplus(normal), A = -exp(normal); x, B, C in ``dtype``."""
+    B, L, H, P, G, N = shape[:6]
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = f(rng.standard_normal((B, L, H, P))).to(getattr(torch, dtype))
+    dt = f(np.log1p(np.exp(rng.standard_normal((B, L, H)))))
+    A = f(-np.exp(rng.standard_normal(H)))
+    Bm, Cm = (f(rng.standard_normal((B, L, G, N))).to(getattr(torch, dtype))
+              for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def flash_err(torch, fa, q, k, v, causal, window):
+    """max |kernel - plain| with the plain version in fp32 on the same
+    inputs; raises past the tolerance of q's type (bf16 also gets one
+    rounding step of each output value)."""
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
+                       window=window)
+    torch.cuda.synchronize()
+    name = str(q.dtype).split(".")[-1]
+    rtol = BF16_STEP if name == "bfloat16" else 0.0
+    diff = (out.float() - ref).abs()
+    err = float(diff.max())
+    if not (torch.isfinite(out).all()
+            and (diff <= FLASH_ATOL[name] + rtol * ref.abs()).all()):
+        raise AssertionError(f"flash_attention != plain version at "
+                             f"{tuple(q.shape)} kv {k.shape[2]} {name} causal "
+                             f"{causal} window {window}: max |diff| {err} "
+                             f"(atol {FLASH_ATOL[name]}, rtol {rtol})")
+    return err
+
+
+def scan_err(torch, ms, x, dt, A, Bm, Cm, chunk):
+    """max |kernel - plain| over y and h, the plain version in fp32 on the
+    same inputs; raises past the tolerance of x's type (bf16 y also gets
+    one rounding step of its own value)."""
+    y, h = ms.mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y_ref, h_ref = ms.reference(x.float(), dt, A, Bm.float(), Cm.float(),
+                                chunk=chunk)
+    torch.cuda.synchronize()
+    name = str(x.dtype).split(".")[-1]
+    rtol = BF16_STEP if name == "bfloat16" else 0.0
+    dy = (y.float() - y_ref).abs()
+    ok = bool((dy <= SCAN_ATOL[name] + rtol * y_ref.abs()).all()
+              and ((h - h_ref).abs() <= SCAN_ATOL[name]).all()
+              and torch.isfinite(y).all() and torch.isfinite(h).all())
+    err = max(float(dy.max()), float((h - h_ref).abs().max()))
+    if not ok:
+        raise AssertionError(f"mamba2_scan != plain version at "
+                             f"{tuple(x.shape)} G {Bm.shape[2]} N "
+                             f"{Bm.shape[3]} {name}: max |diff| {err} (atol "
+                             f"{SCAN_ATOL[name]}, rtol {rtol} on y)")
+    return err
+
+
+def check_lm_kernels(np, torch, dev, lengths):
+    """Phase 3 for flash_attention and mamba2_scan, with the main path's
+    shapes at its prompt ``lengths``; returns their max |kernel - plain|
+    over all cases."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ms
+    flash_path, scan_path = path_checks(lengths)
+    errs = {"flash_attention": 0.0, "mamba2_scan": 0.0}
+    n = 0
+    for (*shape, causal, win), dtypes in FLASH_CHECKS + flash_path:
+        for name in dtypes:
+            q, k, v = flash_inputs(np, torch, shape, name, dev, seed=n)
+            errs["flash_attention"] = max(errs["flash_attention"], flash_err(
+                torch, fa, q, k, v, causal, win))
+            n += 1
+    print(f"[check] flash_attention == plain version on {n} inputs "
+          f"(max |diff| {errs['flash_attention']:.3g})", flush=True)
+    n = 0
+    for shape, dtypes in SCAN_CHECKS + scan_path:
+        for name in dtypes:
+            x, dt, A, Bm, Cm = scan_inputs(np, torch, shape, name, dev, seed=n)
+            errs["mamba2_scan"] = max(errs["mamba2_scan"], scan_err(
+                torch, ms, x, dt, A, Bm, Cm, shape[6]))
+            n += 1
+    print(f"[check] mamba2_scan == plain version on {n} inputs "
+          f"(max |diff| {errs['mamba2_scan']:.3g})", flush=True)
+    return errs
+
+
+def rel_err(a, ref):
+    return float((a - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+def check_serving_against_cpu(np, torch, dev):
+    """Phase 6: the smoke configs on the card and on the CPU."""
+    import copy
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeSession, prefill_step
+    for arch in ("zamba2_7b", "h2o_danube3_4b"):
+        cfg = get_smoke_config(arch)
+        on = {"cpu": M.init_model(torch.Generator().manual_seed(0), cfg)}
+        on["cuda"] = copy.deepcopy(on["cpu"]).to(dev)
+        toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+        pre, dec, served = {}, {}, {}
+        for where, params in on.items():
+            t = torch.from_numpy(toks).to(params.embed.table.device)
+            logits, caches = prefill_step(params, cfg, {"tokens": t[:, :39]},
+                                          capacity=48)
+            pre[where] = logits[:, :cfg.vocab].cpu()
+            d, _ = M.decode_step(params, cfg, t[:, 39:], caches)
+            dec[where] = d[:, :cfg.vocab].cpu()
+            sess = ServeSession(params, cfg, batch_slots=2, capacity=48,
+                                device=where)
+            rng = np.random.default_rng(3)
+            for i, n in enumerate((11, 5, 17, 8)):
+                sess.submit(Request(i, rng.integers(0, cfg.vocab, n,
+                                                    dtype=np.int32), 6))
+            served[where] = {r.request_id: r.generated
+                             for r in sess.run_to_completion()}
+        e_pre = rel_err(pre["cuda"], pre["cpu"])
+        e_dec = rel_err(dec["cuda"], dec["cpu"])
+        if not (e_pre < 1e-4 and e_dec < 1e-4):
+            raise AssertionError(f"{arch} smoke: card vs CPU prefill rel "
+                                 f"{e_pre}, decode rel {e_dec} (< 1e-4)")
+        if served["cuda"] != served["cpu"] or len(served["cuda"]) != 4:
+            raise AssertionError(f"{arch} smoke: session tokens differ: card "
+                                 f"{served['cuda']} CPU {served['cpu']}")
+        print(f"[check] {cfg.name} smoke, card vs CPU: prefill logits rel "
+              f"{e_pre:.3g}, decode rel {e_dec:.3g} (< 1e-4); 4-request "
+              f"session tokens identical", flush=True)
+
+
+def check_full_width_prefill_decode(np, torch, dev):
+    """Phase 7: prefill + decode == forward, zamba2-7b at full width."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import prefill_step
+    cfg = dataclasses.replace(get_config("zamba2_7b"), n_layers=12,
+                              param_dtype="float32", compute_dtype="float32")
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    S = 1024
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, S + 1))).to(dev)
+    ref = M.logits(params, cfg, M.forward(params, cfg, {"tokens": toks})
+                   [:, -1])[:, :cfg.vocab]
+    _, caches = prefill_step(params, cfg, {"tokens": toks[:, :S]},
+                             capacity=S + 8)
+    dec, _ = M.decode_step(params, cfg, toks[:, S:], caches)
+    err = rel_err(dec[:, :cfg.vocab], ref)
+    if not (torch.isfinite(dec).all() and err < 5e-3):
+        raise AssertionError(f"full-width prefill + decode vs forward: rel "
+                             f"{err} (< 5e-3)")
+    print(f"[check] zamba2-7b d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"float32, S={S}: prefill + decode vs forward rel {err:.3g} "
+          f"(< 5e-3)", flush=True)
+    del params, caches
+
+
+def profile_serving(torch, sess, prompts):
+    """Phase 8b: the card's busy share while serving zamba2-7b at full
+    size, from ``torch.profiler`` traces of the main path's drained session
+    serving its first prompts again: the kernels' summed device time over
+    the window's host wall time, for the step that admits a prompt to
+    every slot (the prefills, then one decode step) and for the 4 decode
+    steps after it. The profiler adds host time of its own, so each share
+    is a lower bound; the kernel time per step is the number to compare
+    with the main path's step times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import Request
+    for i, prompt in enumerate(prompts[:sess.B]):
+        sess.submit(Request(i, prompt, max_new_tokens=6))
+
+    def window(steps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sess.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ks) / 1e6
+        return {"wall_s": wall, "kernel_s": busy, "busy": busy / wall,
+                "kernels": sum(e.count for e in ks)}
+
+    lens = "+".join(str(len(p)) for p in prompts[:sess.B])
+    out = {f"admit_{lens}": window(1), "decode_4_steps": window(4)}
+    for name, r in out.items():
+        print(f"[trace] {name}: wall {r['wall_s'] * 1e3:.1f} ms, kernels "
+              f"{r['kernel_s'] * 1e3:.1f} ms in {r['kernels']} launches, "
+              f"busy {r['busy'] * 100:.1f}% (profiled)", flush=True)
+    return out
+
+
+def time_lm_kernels(np, torch, dev):
+    """Phase 9: each kernel at the path's shape, beside its bound, its plain
+    version and (attention) the library call. Returns {name: fields}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ms
+    out = {}
+    *shape, causal, win = PATH_FLASH
+    B, S, H, KV, hd = shape
+    q, k, v = flash_inputs(np, torch, shape, "bfloat16", dev, seed=99)
+    err = flash_err(torch, fa, q, k, v, causal, win)
+    ms_k = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=20)
+    plain = time_ms(torch, lambda: fa.reference(q, k, v), reps=5)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True), reps=20)
+    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
+    ops = 4 * hd * H * B * pairs                # q.k and p.v, 2 each
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    out["flash_attention"] = dict(err=err, ms=ms_k, plain_ms=plain,
+                                  library_ms=lib, ops=ops, bytes=n_bytes)
+    del q, k, v
+    B, L, H, P, G, N, chunk = PATH_SCAN
+    x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
+                                   seed=99)
+    err = scan_err(torch, ms, x, dt, A, Bm, Cm, chunk)
+    ms_k = time_ms(torch, lambda: ms.mamba2_scan(x, dt, A, Bm, Cm), reps=20)
+    plain = time_ms(torch, lambda: ms.reference(x, dt, A, Bm, Cm), reps=5)
+    ops = 0
+    for c0 in range(0, L, chunk):               # per chunk of Qc steps:
+        qc = min(chunk, L - c0)                 # C.B^T, M.x, C.h^T, update
+        ops += B * H * (2 * qc * qc * N + 2 * qc * qc * P + 4 * qc * N * P)
+    n_bytes = (2 * (2 * x.numel() + Bm.numel() + Cm.numel())
+               + 4 * (dt.numel() + A.numel() + B * H * P * N))
+    out["mamba2_scan"] = dict(err=err, ms=ms_k, plain_ms=plain,
+                              library_ms=None, ops=ops, bytes=n_bytes)
+    for name, r in out.items():
+        bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = r["ops"] / BF16_OPS_PER_S * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        lib = ("null" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)")
+        print(f"[time] {name} bf16 at the path's shape: {r['ms']:.4f} ms "
+              f"(median of 20); bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({r['ops'] / 1e9:.2f} GFLOP = {ops_ms:.4f} "
+              f"ms, {r['bytes'] / 1e6:.1f} MB = {bytes_ms:.4f} ms) = "
+              f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the bound; plain "
+              f"version {r['plain_ms']:.4f} ms; library {lib}; max |diff| "
+              f"{r['err']:.3g}", flush=True)
+    return out
+
 
 def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     import torch
@@ -108,9 +436,17 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                                            pack_reduced, reduce_frames,
                                            simulate_detector_frames,
                                            synth_grid_observations)
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import hedm_reduce as hr
-    from repro_torch.kernels.ops import hedm_reduce
+    from repro_torch.kernels.ops import (flash_attention, hedm_reduce,
+                                         mamba2_scan)
+    from repro_torch.launch import serve as launch_serve
+    counted = (hedm_reduce, flash_attention, mamba2_scan)
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -156,6 +492,9 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                                  f"{err}")
     print(f"[check] hedm_reduce == plain version on {len(cases)} inputs "
           f"(float32 and uint16, up to (8, 2048, 2048))", flush=True)
+    prompts = launch_serve.draw_prompts(get_config("zamba2_7b").vocab)
+    errs = check_lm_kernels(np, torch, dev, [len(p) for p in prompts])
+    del big, cases
 
     frames, dark = simulate_detector_frames(6, size=256, n_spots=12, seed=4)
     on_card = pack_reduced(reduce_frames(frames, dark, device=dev))
@@ -178,7 +517,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
 
     # 4. the main path, at the paper's size
     torch.cuda.reset_peak_memory_stats()
-    hr.hedm_reduce.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = interactive.main(device=dev, n_frames=n_frames, size=SIZE,
                            grid_points=grid_points)
@@ -234,6 +573,54 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
           f"per chunk; no single PyTorch call computes this function "
           f"(library_ms null); {n_bytes / ms / 1e6:.1f} GB/s = "
           f"{bound_ms / ms * 100:.1f}% of the bound")
+    del ft, dt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6.-7. the LM path on the card against the CPU, then at full width
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    check_serving_against_cpu(np, torch, dev)
+    check_full_width_prefill_decode(np, torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the LM main path: zamba2-7b serving at full width and depth
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    served = launch_serve.main(device=dev)
+    serve_s = time.perf_counter() - t0
+    lm_launches = {fn.__name__: fn.launches for fn in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, ph = served["cfg"], served["phases"]
+    n_req = len(served["finished"])
+    sites = cfg.n_layers // cfg.attn_every
+    print(f"[lm] {serve_s:.2f}s wall for {cfg.name} ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.param_dtype}): init "
+          f"{ph['init_s']:.2f}s, session {ph['serve_s']:.2f}s; launches "
+          f"{json.dumps(lm_launches)}; peak device memory {peak_gb:.2f} GB")
+    print("[lm] phases: " + json.dumps(ph), flush=True)
+    want = {"flash_attention": n_req * sites, "mamba2_scan": n_req *
+            cfg.n_layers, "hedm_reduce": 0}
+    if lm_launches != want:
+        raise AssertionError(f"the LM path launched {lm_launches}, expected "
+                             f"{want}")
+    if sorted(p["tokens"] for p in ph["prefill"]) != sorted(
+            len(p) for p in prompts):
+        raise AssertionError("the LM path served other prompt lengths than "
+                             "phase 3 checked")
+    if ph["nonfinite_logits"] or n_req != 8 or any(
+            len(r.generated) != 32 for r in served["finished"]):
+        raise AssertionError(f"LM path: {ph['nonfinite_logits']} non-finite "
+                             f"logits, {n_req} requests finished")
+    profile_serving(torch, served["session"], prompts)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the LM kernels at the path's shapes
+    timed = time_lm_kernels(np, torch, dev)
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
 
     kernels = [{
@@ -245,6 +632,16 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "exact": max_err == 0,
     }]
+    for name, line in [("flash_attention", 110), ("mamba2_scan", 89)]:
+        r = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": lm_launches[name],
+            "max_abs_err": max(errs[name], r["err"]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

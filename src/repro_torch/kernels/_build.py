@@ -4,7 +4,9 @@ Every ``csrc/*.cu`` compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes), all
 sources at once in parallel. Libraries go to ``build/repro_torch_kernels/``
 at the root of the checkout, named by a hash of the source, the headers in
-``csrc/`` and the flags: a source is rebuilt only when that hash changes.
+``csrc/`` and the source's flags: a source is rebuilt only when that hash
+changes. ``hedm_reduce`` alone builds with ``--fmad=false``, which its
+bit-exactness needs; the other kernels build with contraction on.
 Each build writes the compiler's output (``-Xptxas=-v``: registers, shared
 memory, spills) beside the library as ``<name>-<hash>.log``.
 
@@ -20,12 +22,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"hedm_reduce": ("--fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -45,9 +48,14 @@ def nvcc() -> str:
     return found
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -70,7 +78,7 @@ def build_all() -> Dict[str, Path]:
         tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
         with open(target.with_suffix(".log"), "w") as log:
             procs[name] = (subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp),
+                [compiler, *flags(name), "-o", str(tmp),
                  str(CSRC / f"{name}.cu")],
                 stdout=log, stderr=subprocess.STDOUT), tmp)
     failed = []
@@ -95,3 +103,21 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             _LIBS[name] = ctypes.CDLL(str(path))
         return _LIBS[name]
+
+
+def bind(name: str, symbol: str, argtypes: Sequence,
+         restype=ctypes.c_int) -> Callable:
+    """The C function ``symbol`` of ``csrc/<name>.cu``, typed."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise ``RuntimeError`` when a launch of ``csrc/<name>.cu`` returned a
+    CUDA error (the library's ``<name>_error_string`` names it)."""
+    if err:
+        msg = bind(name, f"{name}_error_string", [ctypes.c_int],
+                   ctypes.c_char_p)(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

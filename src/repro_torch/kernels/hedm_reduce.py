@@ -29,6 +29,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import _build
+
 _SYMBOLS = {torch.float32: "hedm_reduce_f32", torch.uint16: "hedm_reduce_u16"}
 _MAX_FRAMES = 65535                   # gridDim.z
 
@@ -100,10 +102,7 @@ def hedm_reduce(frames: torch.Tensor, dark: torch.Tensor,
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         err = fn(frames.data_ptr(), dark.data_ptr(), mask.data_ptr(),
                  counts.data_ptr(), F, H, W, float(threshold), stream)
-    if err:
-        msg = _function("hedm_reduce_error_string")(err).decode()
-        raise RuntimeError(f"hedm_reduce launch failed: CUDA error {err} "
-                           f"({msg})")
+    _build.check("hedm_reduce", err)
     hedm_reduce.launches += 1
     return mask, counts
 
@@ -116,18 +115,9 @@ _FUNCTIONS = {}
 
 def _function(name: str):
     """The bound C function ``name`` of ``csrc/hedm_reduce.cu``."""
-    if not _FUNCTIONS:
-        from repro_torch.kernels import _build
-        lib = _build.load("hedm_reduce")
-        for sym in _SYMBOLS.values():
-            f = getattr(lib, sym)
-            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-            f.restype = ctypes.c_int
-            _FUNCTIONS[sym] = f
-        f = lib.hedm_reduce_error_string
-        f.argtypes = [ctypes.c_int]
-        f.restype = ctypes.c_char_p
-        _FUNCTIONS["hedm_reduce_error_string"] = f
+    if name not in _FUNCTIONS:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _FUNCTIONS[name] = _build.bind("hedm_reduce", name,
+                                       [p, p, p, p, i, i, i, ctypes.c_float,
+                                        p])
     return _FUNCTIONS[name]

@@ -1,0 +1,323 @@
+"""Blocks and layer stacks: full-sequence forward, prefill and decode.
+
+Counterpart of ``repro.models.transformer``. The reference stacks each
+group's parameters along a leading layer axis and scans over it; here a
+stack is an ``nn.ModuleList`` of per-layer blocks and a Python loop, and
+caches are lists of per-layer caches. Two patterns:
+
+  * ``uniform``      -- one homogeneous list of ``attn_mlp`` blocks (dense
+                        FFN) or ``mamba2`` blocks.
+  * ``zamba_hybrid`` -- groups of ``attn_every`` Mamba2 blocks, each group
+                        followed by the SHARED attention block (weights
+                        shared across sites, per-site LoRA deltas on q and
+                        k); the remainder layers form a tail.
+
+MoE (qwen3-moe, deepseek) and RWKV6 blocks are not ported yet (ROADMAP §1
+item 9).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as m2
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import (MLP, Params, RMSNorm, const,
+                                       dense_init, dt, mlp, rmsnorm)
+
+ZAMBA_LORA_RANK = 64
+MOE_TODO = "MoE blocks are not ported yet: ROADMAP §1 item 9 (moe)"
+RWKV_TODO = "RWKV6 blocks are not ported yet: ROADMAP §1 item 9 (rwkv6)"
+
+
+# ---------------------------------------------------------------------------
+# single blocks
+# ---------------------------------------------------------------------------
+
+class Block(Params):
+    """One block: Mamba2 mixer, or attention + dense SwiGLU FFN."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        dtype = dtype or dt(cfg.param_dtype)
+        if cfg.block_kind == "rwkv6":
+            raise NotImplementedError(RWKV_TODO)
+        if cfg.block_kind == "mamba2":
+            self.norm = RMSNorm(cfg.d_model, dtype, device)
+            self.mixer = m2.Mamba2(cfg, gen, device, dtype)
+            return
+        self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+        self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = attn_mod.Attention(cfg, gen, device, dtype)
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
+    return Block(cfg, gen, gen.device)
+
+
+def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward for one block."""
+    if cfg.block_kind == "mamba2":
+        return x + m2.mamba2_block(params["mixer"], cfg,
+                                   rmsnorm(params["norm"], x, cfg.norm_eps))
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    x = x + attn_mod.attention(params["attn"], cfg, h, positions)
+    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+
+
+def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                 cache: Any) -> Tuple[torch.Tensor, Any]:
+    """One-token decode for one block. cache: KVCache | SSMState."""
+    if cfg.block_kind == "mamba2":
+        h = rmsnorm(params["norm"], x, cfg.norm_eps)
+        out, cache = m2.mamba2_decode(params["mixer"], cfg, h, cache)
+        return x + out, cache
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache)
+    x = x + out
+    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps)), \
+        cache
+
+
+def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, capacity: int
+                  ) -> Tuple[torch.Tensor, Any]:
+    """Forward one block and return its decode cache."""
+    if cfg.block_kind == "mamba2":
+        h = rmsnorm(params["norm"], x, cfg.norm_eps)
+        out, state = m2.mamba2_prefill(params["mixer"], cfg, h)
+        return x + out, state
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    out, kv = attn_mod.attention_prefill(params["attn"], cfg, h, positions,
+                                         capacity)
+    x = x + out
+    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps)), \
+        kv
+
+
+# ---------------------------------------------------------------------------
+# zamba shared attention block (+ per-site LoRA)
+# ---------------------------------------------------------------------------
+
+class SharedAttn(Params):
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        dtype = dtype or dt(cfg.param_dtype)
+        self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+        self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = attn_mod.Attention(cfg, gen, device, dtype)
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class SiteLoRA(Params):
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        dtype = dtype or dt(cfg.param_dtype)
+        d, hd, r = cfg.d_model, cfg.resolved_head_dim, ZAMBA_LORA_RANK
+        self.a_q = dense_init(gen, d, r, dtype, device)
+        self.b_q = const((r, cfg.n_heads * hd), 0.0, dtype, device)
+        self.a_k = dense_init(gen, d, r, dtype, device)
+        self.b_k = const((r, cfg.n_kv_heads * hd), 0.0, dtype, device)
+
+
+def init_shared_attn(gen: torch.Generator, cfg: ModelConfig) -> SharedAttn:
+    return SharedAttn(cfg, gen, gen.device)
+
+
+def init_site_lora(gen: torch.Generator, cfg: ModelConfig) -> SiteLoRA:
+    return SiteLoRA(cfg, gen, gen.device)
+
+
+def _lora_adjusted_attn_params(shared, lora) -> Dict[str, torch.Tensor]:
+    """Per-site attention weights: wq + a_q@b_q and wk + a_k@b_k."""
+    p = dict(shared.named_parameters(recurse=False))
+    p["wq"] = shared["wq"] + lora["a_q"] @ lora["b_q"]
+    p["wk"] = shared["wk"] + lora["a_k"] @ lora["b_k"]
+    return p
+
+
+def _shared_mlp(shared, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + mlp(shared["mlp"], rmsnorm(shared["norm2"], x, cfg.norm_eps))
+
+
+def shared_attn_forward(shared, lora, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    ap = _lora_adjusted_attn_params(shared["attn"], lora)
+    h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
+    return _shared_mlp(shared, cfg,
+                       x + attn_mod.attention(ap, cfg, h, positions))
+
+
+def shared_attn_decode(shared, lora, cfg: ModelConfig, x: torch.Tensor,
+                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    ap = _lora_adjusted_attn_params(shared["attn"], lora)
+    h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
+    out, cache = attn_mod.decode_attention(ap, cfg, h, cache)
+    return _shared_mlp(shared, cfg, x + out), cache
+
+
+def shared_attn_prefill(shared, lora, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, capacity: int
+                        ) -> Tuple[torch.Tensor, KVCache]:
+    ap = _lora_adjusted_attn_params(shared["attn"], lora)
+    h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
+    out, kv = attn_mod.attention_prefill(ap, cfg, h, positions, capacity)
+    return _shared_mlp(shared, cfg, x + out), kv
+
+
+# ---------------------------------------------------------------------------
+# stacks
+# ---------------------------------------------------------------------------
+
+def _sites(cfg: ModelConfig) -> Tuple[int, int]:
+    """(shared-attention sites, tail layers) of a zamba_hybrid stack."""
+    n_sites = cfg.n_layers // cfg.attn_every
+    return n_sites, cfg.n_layers - n_sites * cfg.attn_every
+
+
+class Stack(Params):
+    """All blocks of the configured pattern. zamba_hybrid: ``groups``
+    (n_sites * attn_every Mamba2 blocks, in order), ``shared_attn``,
+    ``loras`` (one per site) and ``tail``; uniform: ``layers``."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+
+        def blocks(n):
+            return nn.ModuleList(Block(cfg, gen, device, dtype)
+                                 for _ in range(n))
+        if cfg.block_pattern == "zamba_hybrid":
+            n_sites, n_tail = _sites(cfg)
+            self.groups = blocks(n_sites * cfg.attn_every)
+            self.shared_attn = SharedAttn(cfg, gen, device, dtype)
+            self.loras = nn.ModuleList(SiteLoRA(cfg, gen, device, dtype)
+                                       for _ in range(n_sites))
+            if n_tail:
+                self.tail = blocks(n_tail)
+            return
+        if cfg.moe is not None:
+            raise NotImplementedError(MOE_TODO)
+        self.layers = blocks(cfg.n_layers)
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Stack:
+    return Stack(cfg, gen, gen.device)
+
+
+def _site_groups(params, cfg: ModelConfig) -> List[List[Block]]:
+    ge = cfg.attn_every
+    return [list(params["groups"][i * ge:(i + 1) * ge])
+            for i in range(len(params["loras"]))]
+
+
+def _tail(params) -> List[Block]:
+    return list(params["tail"]) if "tail" in params else []
+
+
+def stack_forward(params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward through all layers."""
+    if cfg.block_pattern == "zamba_hybrid":
+        for group, lora in zip(_site_groups(params, cfg), params["loras"]):
+            for block in group:
+                x = block_forward(block, cfg, x, positions)
+            x = shared_attn_forward(params["shared_attn"], lora, cfg, x,
+                                    positions)
+        for block in _tail(params):
+            x = block_forward(block, cfg, x, positions)
+        return x
+    for block in params["layers"]:
+        x = block_forward(block, cfg, x, positions)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# decode and prefill (per-layer caches)
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, capacity: int,
+                device) -> Dict[str, List[Any]]:
+    """Per-layer decode caches matching the stack: zamba_hybrid ``groups``
+    (SSMState each), ``shared_kv`` (KVCache per site) and ``tail``; uniform
+    ``layers``."""
+    if cfg.block_pattern == "zamba_hybrid":
+        n_sites, n_tail = _sites(cfg)
+
+        def ssm(n):
+            return [m2.init_ssm_state(cfg, batch, device) for _ in range(n)]
+        caches = {"groups": ssm(n_sites * cfg.attn_every),
+                  "shared_kv": [attn_mod.init_kv_cache(cfg, batch, capacity,
+                                                       device)
+                                for _ in range(n_sites)]}
+        if n_tail:
+            caches["tail"] = ssm(n_tail)
+        return caches
+    if cfg.block_kind == "mamba2":
+        return {"layers": [m2.init_ssm_state(cfg, batch, device)
+                           for _ in range(cfg.n_layers)]}
+    return {"layers": [attn_mod.init_kv_cache(cfg, batch, capacity, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
+    """One-token decode through all layers. Returns (x, new caches)."""
+    if cfg.block_pattern == "zamba_hybrid":
+        ge = cfg.attn_every
+        new = {"groups": [], "shared_kv": []}
+        for s, (group, lora) in enumerate(zip(_site_groups(params, cfg),
+                                              params["loras"])):
+            for j, block in enumerate(group):
+                x, c = block_decode(block, cfg, x, caches["groups"][s * ge + j])
+                new["groups"].append(c)
+            x, kv = shared_attn_decode(params["shared_attn"], lora, cfg, x,
+                                       caches["shared_kv"][s])
+            new["shared_kv"].append(kv)
+        if "tail" in params:
+            new["tail"] = []
+            for block, c in zip(params["tail"], caches["tail"]):
+                x, c = block_decode(block, cfg, x, c)
+                new["tail"].append(c)
+        return x, new
+    new = {"layers": []}
+    for block, c in zip(params["layers"], caches["layers"]):
+        x, c = block_decode(block, cfg, x, c)
+        new["layers"].append(c)
+    return x, new
+
+
+def stack_prefill(params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, capacity: int
+                  ) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
+    """Forward all layers, returning per-layer decode caches (the structure
+    of :func:`init_caches`)."""
+    if cfg.block_pattern == "zamba_hybrid":
+        caches = {"groups": [], "shared_kv": []}
+        for group, lora in zip(_site_groups(params, cfg), params["loras"]):
+            for block in group:
+                x, c = block_prefill(block, cfg, x, positions, capacity)
+                caches["groups"].append(c)
+            x, kv = shared_attn_prefill(params["shared_attn"], lora, cfg, x,
+                                        positions, capacity)
+            caches["shared_kv"].append(kv)
+        if "tail" in params:
+            caches["tail"] = []
+            for block in params["tail"]:
+                x, c = block_prefill(block, cfg, x, positions, capacity)
+                caches["tail"].append(c)
+        return x, caches
+    caches = {"layers": []}
+    for block in params["layers"]:
+        x, c = block_prefill(block, cfg, x, positions, capacity)
+        caches["layers"].append(c)
+    return x, caches

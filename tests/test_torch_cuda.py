@@ -1,25 +1,43 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-pipeline's stages on the card against the CPU.
+"""The port on the card: the CUDA kernels against their plain versions, and
+the pipeline's stages and the serving path on the card against the CPU.
 
-Every test here needs an NVIDIA GPU and ``nvcc`` (the kernel has no CPU
+Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels have no CPU
 mode) and skips without one. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The file imports neither JAX nor the reference package; the plain version
-it holds the kernel to is itself held bit-exact to the reference on the CPU
-(``tests/test_torch_hedm_reduce.py``).
+The file imports neither JAX nor the reference package; the plain versions
+it holds the kernels to are themselves held to the reference on the CPU
+(``tests/test_torch_hedm_reduce.py``, ``test_torch_flash_attention.py``,
+``test_torch_mamba2_scan.py``).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_smoke_config
 from repro_torch.hedm import pipeline as T
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hedm_reduce as port
-from repro_torch.kernels.ops import hedm_reduce
+from repro_torch.kernels import mamba2_scan as ms
+from repro_torch.kernels.ops import flash_attention, hedm_reduce, mamba2_scan
+from repro_torch.models import model as M
+from repro_torch.serve.engine import prefill_step
 from torch_parity import HEDM_REDUCE_CASES as CASES
+from torch_parity import (FLASH_SHAPES, SCAN_SHAPES, flash_inputs,
+                          scan_inputs)
 
 pytestmark = pytest.mark.cuda
+
+#: zamba2-7b's prefill widths at prompt lengths of its serving path, none a
+#: multiple of the 64-row attention tile or the 128-step scan chunk. The
+#: scan's are checked in bfloat16, the path's type, only: its outputs reach
+#: a few hundred at these widths, where float32 summed in another order
+#: differs from the plain version by more than the absolute 2e-4.
+PATH_FLASH_SHAPES = [(1, S, 32, 32, 112, True, 0) for S in (285, 1781)]
+PATH_SCAN_SHAPES = [(1, L, 112, 64, 1, 64, 128) for L in (285, 1781)]
+SCAN_CASES = ([(s, d) for s in SCAN_SHAPES for d in ("float32", "bfloat16")]
+              + [(s, "bfloat16") for s in PATH_SCAN_SHAPES])
 
 
 @pytest.fixture
@@ -79,3 +97,83 @@ def test_device_generator_is_seeded(card):
     assert np.array_equal(a, b) and np.array_equal(da, db)
     assert a.dtype == np.float32 and a.shape == (3, 128, 128)
     assert all(f.max() > 500 for f in a)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,win",
+                         FLASH_SHAPES + PATH_FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain_version(card, B, S, H, KV, hd,
+                                                      causal, win, dtype):
+    """float32 within 3e-5; bfloat16 against the plain version run in
+    float32 on the same bf16 inputs, within 1e-3 plus one bf16 rounding
+    step (2^-7) of each output value."""
+    q, k, v = (torch.from_numpy(a).to(card).to(getattr(torch, dtype))
+               for a in flash_inputs(B, S, H, KV, hd, seed=S + hd))
+    before = fa.flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
+                       window=win)
+    assert out.dtype == q.dtype
+    atol, rtol = (3e-5, 0.0) if dtype == "float32" else (1e-3, 2.0 ** -7)
+    assert bool(((out.float() - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+@pytest.mark.parametrize("shape,dtype", SCAN_CASES, ids=str)
+def test_mamba2_scan_kernel_matches_plain_version(card, shape, dtype):
+    """float32 within 2e-4; bf16 x/B/C against the plain version run in
+    float32 on the same inputs, within 2e-2 plus one bf16 rounding step
+    (2^-7) of each output value, whose magnitude reaches ~100."""
+    B, L, H, P, G, N, chunk = shape
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(card)
+                        for a in scan_inputs(B, L, H, P, G, N, seed=L + P))
+    low = getattr(torch, dtype)
+    x, Bm, Cm = x.to(low), Bm.to(low), Cm.to(low)
+    before = ms.mamba2_scan.launches
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ms.mamba2_scan.launches == before + 1
+    y_ref, h_ref = ms.reference(x.float(), dt, A, Bm.float(), Cm.float(),
+                                chunk=chunk)
+    assert y.dtype == low and h.dtype == torch.float32
+    atol, rtol = (2e-4, 0.0) if dtype == "float32" else (2e-2, 2.0 ** -7)
+    assert bool(((y.float() - y_ref).abs()
+                 <= atol + rtol * y_ref.abs()).all())
+    assert float((h - h_ref).abs().max()) <= atol
+
+
+def test_lm_kernels_reject_non_contiguous_input(card):
+    q = torch.zeros(1, 8, 4, 64, device=card)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q, q)
+    x = torch.zeros(1, 8, 4, 32, device=card)[..., ::2]
+    dt = torch.zeros(1, 8, 4, device=card)
+    bc = torch.zeros(1, 8, 1, 8, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_scan(x, dt, torch.zeros(4, device=card), bc, bc)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "h2o_danube3_4b"])
+def test_prefill_and_decode_on_card_match_cpu(card, arch):
+    """The same seed-made smoke weights on both devices, float32: logits
+    within 1e-4 relative, and the path launched both kernels."""
+    cfg = get_smoke_config(arch)
+    cpu = M.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = M.Model(cfg, None, card)
+    on_card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40)))
+    out = {}
+    before = fa.flash_attention.launches
+    for name, params in [("cpu", cpu), ("card", on_card)]:
+        t = toks.to(params.embed.table.device)
+        logits, caches = prefill_step(params, cfg, {"tokens": t[:, :39]},
+                                      capacity=48)
+        dec, _ = M.decode_step(params, cfg, t[:, 39:], caches)
+        out[name] = (logits.cpu(), dec.cpu())
+    assert fa.flash_attention.launches > before
+    for a, b in zip(out["card"], out["cpu"]):
+        v = cfg.vocab
+        assert float((a[:, :v] - b[:, :v]).abs().max()
+                     / b[:, :v].abs().max()) < 1e-4

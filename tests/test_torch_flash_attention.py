@@ -1,0 +1,75 @@
+"""The port's flash_attention plain version against the reference oracle.
+
+The plain version (``reference``) and the op (``ops.flash_attention`` on
+CPU tensors) must match ``repro.kernels.flash_attention_ref.reference`` on
+the same numpy inputs: float32 within 3e-5 and bfloat16 within 2e-2, the
+tolerances of tests/test_kernels.py. The Pallas kernel is not the oracle:
+it does not run on this JAX (ROADMAP §3). The CUDA kernel itself runs only
+on a card (``tests/test_torch_cuda.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention_ref import reference as jax_reference
+from repro_torch.kernels import flash_attention as port
+from repro_torch.kernels.ops import flash_attention
+from torch_parity import FLASH_SHAPES, flash_inputs
+
+jax_reference = jax.jit(jax_reference, static_argnames=("causal", "window",
+                                                        "scale"))
+TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,win", FLASH_SHAPES)
+def test_plain_version_matches_oracle(B, S, H, KV, hd, causal, win, dtype):
+    arrays = flash_inputs(B, S, H, KV, hd, seed=S + hd)
+    ref = jax_reference(*(jnp.asarray(a, dtype) for a in arrays),
+                        causal=causal, window=win)
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    before = port.flash_attention.launches
+    out = flash_attention(*ts, causal=causal, window=win)
+    assert port.flash_attention.launches == before   # no kernel on the CPU
+    assert out.dtype == ts[0].dtype and out.shape == ts[0].shape
+    assert torch.equal(out, port.reference(*ts, causal=causal, window=win))
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=0,
+                               atol=TOL[dtype])
+
+
+def test_explicit_scale_matches_oracle():
+    arrays = flash_inputs(1, 64, 4, 2, 32, seed=3)
+    ref = jax_reference(*map(jnp.asarray, arrays), causal=True, window=0,
+                        scale=0.3)
+    out = flash_attention(*map(torch.from_numpy, arrays), scale=0.3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=3e-5)
+
+
+def test_first_causal_row_is_its_own_value():
+    """Query 0 sees key 0 alone: every head of its kv head returns v[0]."""
+    q, k, v = (torch.from_numpy(a) for a in flash_inputs(1, 8, 2, 1, 16))
+    out = flash_attention(q, k, v, causal=True)
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out[0, 0], v[0, 0].expand(2, 16), atol=1e-6)
+
+
+@pytest.mark.parametrize("q,k,v,error", [
+    (torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 1, 8),
+     ValueError),
+    (torch.zeros(1, 4, 3, 8), torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
+     ValueError),
+    (torch.zeros(1, 4, 2, 8), torch.zeros(1, 5, 2, 8), torch.zeros(1, 5, 2, 8),
+     ValueError),
+    (torch.zeros(1, 4, 2, 8, dtype=torch.float16),
+     torch.zeros(1, 4, 2, 8, dtype=torch.float16),
+     torch.zeros(1, 4, 2, 8, dtype=torch.float16), TypeError),
+    (torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16),
+     torch.zeros(1, 4, 2, 8), TypeError),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, v, error):
+    with pytest.raises(error):
+        flash_attention(q, k, v)

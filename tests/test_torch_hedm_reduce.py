@@ -85,11 +85,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(frames, dark, error):
 
 
 def test_build_targets_sm90a_without_fma_contraction():
-    """The kernel's bit-exactness rests on these flags; the library lands in
-    the git-ignored build directory under a name that tracks the source."""
-    flags = " ".join(_build.NVCC_FLAGS)
+    """The kernel's bit-exactness rests on these flags, which no other
+    kernel takes; the library lands in the git-ignored build directory under
+    a name that tracks the source and its flags."""
+    flags = " ".join(_build.flags("hedm_reduce"))
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags
+    for other in ("flash_attention", "mamba2_scan"):
+        assert "arch=compute_90a,code=sm_90a" in " ".join(_build.flags(other))
+        assert "--fmad=false" not in _build.flags(other)
     path = _build.library_path("hedm_reduce")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("hedm_reduce-") and path.suffix == ".so"

@@ -98,3 +98,49 @@ HEDM_REDUCE_CASES = {
     "u16-pure-noise": lambda: pure_noise_case(np.uint16),
     "u16-full-range": _full_range_u16,
 }
+
+
+#: flash_attention cases ``(B, S, H, KV, hd, causal, window)``: the shapes
+#: of tests/test_kernels.py, then ragged S (not a multiple of any tile) with
+#: the head dims of zamba2 (112) and danube3 (120), and a bidirectional
+#: windowed case with 4 query heads per kv head.
+FLASH_SHAPES = [
+    (2, 256, 8, 4, 64, True, 0),
+    (1, 256, 4, 4, 128, True, 64),
+    (2, 128, 8, 2, 32, False, 0),
+    (1, 512, 8, 8, 64, True, 0),
+    (1, 256, 16, 4, 64, True, 128),
+    (1, 100, 4, 2, 112, True, 0),
+    (1, 200, 8, 2, 120, True, 48),
+    (1, 37, 4, 1, 32, False, 16),
+]
+
+#: mamba2_scan cases ``(B, L, H, P, G, N, chunk)``: the shapes of
+#: tests/test_kernels.py, then a ragged L (100 is no multiple of the chunk)
+#: at the model's chunk of 128 and at 32.
+SCAN_SHAPES = [
+    (2, 128, 4, 16, 2, 8, 32),
+    (1, 64, 2, 32, 1, 16, 16),
+    (1, 256, 8, 16, 8, 8, 64),
+    (1, 100, 4, 16, 2, 8, 32),
+    (1, 100, 4, 64, 1, 64, 128),
+]
+
+
+def flash_inputs(B, S, H, KV, hd, seed=0):
+    """q (B,S,H,hd), k and v (B,S,KV,hd), standard normal float32."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)])
+
+
+def scan_inputs(B, L, H, P, G, N, seed=0):
+    """x (B,L,H,P), dt = softplus(normal) (B,L,H), A = -exp(normal) (H,),
+    B and C (B,L,G,N), float32: the distributions of tests/test_kernels.py."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H))).astype(np.float32)
+    Bm = rng.standard_normal((B, L, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, L, G, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm

@@ -23,19 +23,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
    float32 on the same bf16 inputs, within 1e-3 (attention) or 2e-2 (scan)
    plus one bf16 rounding step, 2^-7 |ref|, of each output value. Then
    the NF-HEDM path's stages on a small scan against the CPU: stage 1 bit
-   for bit, stage 2 within 1e-4.
+   for bit, stage 2 within 1e-4. ``rwkv6_wkv`` at the shapes of
+   tests/test_kernels.py, a prime L (97), a strong decay (w in [1e-4,
+   0.1], where a kernel that split the exponent would give inf) and the
+   rwkv6-3b prefill widths (1, L, 40, 64) with a decay like the model's
+   (~0.98): float32 and bfloat16 at L = 2048, bfloat16 at every prompt
+   length of the main path. Output in float32 within 2e-4 (test shapes)
+   or 2e-4 + 1e-5 |ref| (path widths), in bfloat16 within 1e-3 + 2^-7
+   |ref|; the float32 state within 2e-4 + 1e-5 |ref| in every case.
 4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
    paper's size, 736 frames of 2048x2048 and 100,000 grid points.
 5. Timing of ``hedm_reduce`` at (736, 2048, 2048) float32 (CUDA events,
    median of 20 launches after warm-up) beside its HBM bound and its plain
    version, which is first held equal to the kernel on all 736 frames.
-6. Serving on the card against the CPU at smoke size: zamba2-7b and
-   h2o-danube3-4b smoke configs in float32, the same seed-made weights on
-   both devices; prefill logits and one decode step within 1e-4 relative,
-   and a 4-request ``ServeSession`` with identical token ids.
-7. Prefill + decode == forward at full width: zamba2-7b at d_model 3584
-   with 12 layers (2 shared-attention sites), float32 on the card, S=1024;
-   relative error < 5e-3 (tests/test_serve.py's bound).
+6. Serving on the card against the CPU at smoke size: zamba2-7b,
+   h2o-danube3-4b and rwkv6-3b smoke configs in float32, the same
+   seed-made weights on both devices; prefill logits and one decode step
+   within 1e-4 relative, and a 4-request ``ServeSession`` with identical
+   token ids.
+7. Prefill + decode == forward at full width, float32 on the card, S=1024:
+   zamba2-7b at d_model 3584 with 12 layers (2 shared-attention sites),
+   rwkv6-3b at d_model 2560 (40 heads of 64) with 4 layers; relative error
+   < 5e-3 (tests/test_serve.py's bound).
 8. The LM main path: ``repro_torch.launch.serve.main``, zamba2-7b at full
    width and depth (81 layers), bf16, random weights from seed 0; 8
    requests with prompts of 256..2048 tokens (numpy seed 0), 32 new tokens
@@ -44,14 +53,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    session serves its first four prompts again under ``torch.profiler``:
    the step that admits them (4 prefills, 1 decode step) and the 4 decode
    steps after it give the card's busy share (kernel time over wall time).
-9. Timing of ``flash_attention`` and ``mamba2_scan`` at the path's shapes
-   (S = L = 2048, bf16), median of 20 launches by CUDA events after
-   warm-up, beside each one's bound, its plain version and, for attention,
+   8b. The same for rwkv6-3b at full width and depth (32 layers, d_model
+   2560), once the zamba2 session is freed: the same prompts, ``rwkv6_wkv``
+   launched 8 x 32 times and no other kernel.
+9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
+   paths' shapes (S = L = 2048, bf16; the decay float32), median of 20
+   launches by CUDA events after warm-up, beside each one's bound, its
+   plain version and, for attention,
    ``torch.nn.functional.scaled_dot_product_attention`` (the port never
    calls it).
 
-Each main path (4 and 8) runs with every launch count set to 0 just before
-and read just after. The last three lines of standard output are the
+Each main path (4, 8 and 8b) runs with every launch count set to 0 just
+before and read just after. The last three lines of standard output are the
 card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -151,20 +164,34 @@ SCAN_CHECKS = [
     ((1, 100, 4, 16, 2, 8, 32), BOTH),        # ragged L
     ((1, 2048, 112, 64, 1, 64, 128), ("bfloat16",)),    # zamba2 prefill
 ]
+# rwkv6_wkv checks: (B, L, H, N, chunk), types, decay ("test" is 0.45 +
+# 0.5 sigmoid(normal), "strong" uniform in [1e-4, 0.1], "path" about 0.98)
+WKV_CHECKS = [
+    *[(shape, BOTH, "test") for shape in [    # tests/test_kernels.py:78-84
+        (2, 96, 3, 8, 32), (1, 64, 2, 16, 16), (1, 128, 4, 32, 32)]],
+    ((1, 97, 3, 16, 32), BOTH, "test"),       # prime L
+    ((1, 97, 2, 64, 32), BOTH, "strong"),
+    ((1, 2048, 40, 64, 32), BOTH, "path"),    # rwkv6-3b prefill
+]
 PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
 PATH_SCAN = (1, 2048, 112, 64, 1, 64, 128)
+PATH_WKV = (1, 2048, 40, 64, 32)
 FLASH_ATOL = {"float32": 3e-5, "bfloat16": 1e-3}
 SCAN_ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
+WKV_ATOL = {"float32": 2e-4, "bfloat16": 1e-3}
 BF16_STEP = 2.0 ** -7          # one rounding step of a bf16 output, relative
+STATE_RTOL = 1e-5              # of |ref|: float32 at the path's widths
 
 
 def path_checks(lengths):
-    """The LM main path's kernel shapes at each of its prompt lengths."""
+    """The LM main paths' kernel shapes at each of their prompt lengths."""
     *fw, causal, win = PATH_FLASH
     B, _, H, P, G, N, chunk = PATH_SCAN
+    Bw, _, Hw, Nw, cw = PATH_WKV
     return ([((fw[0], n, *fw[2:], causal, win), ("bfloat16",))
              for n in lengths],
-            [((B, n, H, P, G, N, chunk), ("bfloat16",)) for n in lengths])
+            [((B, n, H, P, G, N, chunk), ("bfloat16",)) for n in lengths],
+            [((Bw, n, Hw, Nw, cw), ("bfloat16",), "path") for n in lengths])
 
 
 def flash_inputs(np, torch, shape, dtype, dev, seed=0):
@@ -187,6 +214,45 @@ def scan_inputs(np, torch, shape, dtype, dev, seed=0):
     Bm, Cm = (f(rng.standard_normal((B, L, G, N))).to(getattr(torch, dtype))
               for _ in range(2))
     return x, dt, A, Bm, Cm
+
+
+def wkv_inputs(np, torch, shape, dtype, decay, dev, seed=0):
+    """r, k, v, u standard normal (r, k, v in ``dtype``); w float32 from
+    the ``decay`` of WKV_CHECKS."""
+    B, L, H, N = shape[:4]
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    low = getattr(torch, dtype)
+    r, k, v = (f(rng.standard_normal((B, L, H, N))).to(low) for _ in range(3))
+    z = rng.standard_normal((B, L, H, N))
+    w = {"test": lambda: 0.45 + 0.5 / (1 + np.exp(-z)),
+         "strong": lambda: rng.uniform(1e-4, 0.1, z.shape),
+         "path": lambda: np.exp(-np.exp(-4 + 0.5 * z))}[decay]()
+    return r, k, v, f(w), f(rng.standard_normal((H, N)))
+
+
+def wkv_err(torch, wk, r, k, v, w, u, chunk, path):
+    """max |kernel - plain| over out and s, the plain version in fp32 on
+    the same inputs; raises past the tolerance of r's type (bf16 also gets
+    one rounding step of each output value, float32 at the path's widths
+    1e-5 of it; the state 2e-4 + 1e-5 |ref|)."""
+    out, s = wk.rwkv6_wkv(r, k, v, w, u, chunk=chunk)
+    o_ref, s_ref = wk.reference(r.float(), k.float(), v.float(), w, u,
+                                chunk=chunk)
+    torch.cuda.synchronize()
+    name = str(r.dtype).split(".")[-1]
+    rtol = BF16_STEP if name == "bfloat16" else (STATE_RTOL if path else 0.0)
+    do, ds = (out.float() - o_ref).abs(), (s - s_ref).abs()
+    ok = bool((do <= WKV_ATOL[name] + rtol * o_ref.abs()).all()
+              and (ds <= 2e-4 + STATE_RTOL * s_ref.abs()).all()
+              and torch.isfinite(out).all() and torch.isfinite(s).all())
+    err = max(float(do.max()), float(ds.max()))
+    if not ok:
+        raise AssertionError(f"rwkv6_wkv != plain version at "
+                             f"{tuple(r.shape)} {name}: max |diff| {err} "
+                             f"(atol {WKV_ATOL[name]}, rtol {rtol} on out; "
+                             f"2e-4 + {STATE_RTOL} |ref| on s)")
+    return err
 
 
 def flash_err(torch, fa, q, k, v, causal, window):
@@ -234,13 +300,14 @@ def scan_err(torch, ms, x, dt, A, Bm, Cm, chunk):
 
 
 def check_lm_kernels(np, torch, dev, lengths):
-    """Phase 3 for flash_attention and mamba2_scan, with the main path's
-    shapes at its prompt ``lengths``; returns their max |kernel - plain|
-    over all cases."""
+    """Phase 3 for flash_attention, mamba2_scan and rwkv6_wkv, with the
+    main paths' shapes at their prompt ``lengths``; returns their max
+    |kernel - plain| over all cases."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_scan as ms
-    flash_path, scan_path = path_checks(lengths)
-    errs = {"flash_attention": 0.0, "mamba2_scan": 0.0}
+    from repro_torch.kernels import rwkv6_wkv as wk
+    flash_path, scan_path, wkv_path = path_checks(lengths)
+    errs = {"flash_attention": 0.0, "mamba2_scan": 0.0, "rwkv6_wkv": 0.0}
     n = 0
     for (*shape, causal, win), dtypes in FLASH_CHECKS + flash_path:
         for name in dtypes:
@@ -259,6 +326,16 @@ def check_lm_kernels(np, torch, dev, lengths):
             n += 1
     print(f"[check] mamba2_scan == plain version on {n} inputs "
           f"(max |diff| {errs['mamba2_scan']:.3g})", flush=True)
+    n = 0
+    for shape, dtypes, decay in WKV_CHECKS + wkv_path:
+        for name in dtypes:
+            r, k, v, w, u = wkv_inputs(np, torch, shape, name, decay, dev,
+                                       seed=n)
+            errs["rwkv6_wkv"] = max(errs["rwkv6_wkv"], wkv_err(
+                torch, wk, r, k, v, w, u, shape[4], decay == "path"))
+            n += 1
+    print(f"[check] rwkv6_wkv == plain version on {n} inputs "
+          f"(max |diff| {errs['rwkv6_wkv']:.3g})", flush=True)
     return errs
 
 
@@ -272,7 +349,7 @@ def check_serving_against_cpu(np, torch, dev):
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeSession, prefill_step
-    for arch in ("zamba2_7b", "h2o_danube3_4b"):
+    for arch in ("zamba2_7b", "h2o_danube3_4b", "rwkv6_3b"):
         cfg = get_smoke_config(arch)
         on = {"cpu": M.init_model(torch.Generator().manual_seed(0), cfg)}
         on["cuda"] = copy.deepcopy(on["cpu"]).to(dev)
@@ -306,13 +383,14 @@ def check_serving_against_cpu(np, torch, dev):
               f"session tokens identical", flush=True)
 
 
-def check_full_width_prefill_decode(np, torch, dev):
-    """Phase 7: prefill + decode == forward, zamba2-7b at full width."""
+def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
+    """Phase 7: prefill + decode == forward, ``arch`` at full width and
+    ``n_layers`` deep."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
     from repro_torch.serve.engine import prefill_step
-    cfg = dataclasses.replace(get_config("zamba2_7b"), n_layers=12,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               param_dtype="float32", compute_dtype="float32")
     params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
     S = 1024
@@ -327,14 +405,14 @@ def check_full_width_prefill_decode(np, torch, dev):
     if not (torch.isfinite(dec).all() and err < 5e-3):
         raise AssertionError(f"full-width prefill + decode vs forward: rel "
                              f"{err} (< 5e-3)")
-    print(f"[check] zamba2-7b d_model {cfg.d_model}, {cfg.n_layers} layers, "
+    print(f"[check] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
           f"float32, S={S}: prefill + decode vs forward rel {err:.3g} "
           f"(< 5e-3)", flush=True)
     del params, caches
 
 
 def profile_serving(torch, sess, prompts):
-    """Phase 8b: the card's busy share while serving zamba2-7b at full
+    """Phases 8 and 8b: the card's busy share while serving a model at full
     size, from ``torch.profiler`` traces of the main path's drained session
     serving its first prompts again: the kernels' summed device time over
     the window's host wall time, for the step that admits a prompt to
@@ -372,12 +450,29 @@ def profile_serving(torch, sess, prompts):
     return out
 
 
+def wkv_ops(B, L, H, N, chunk):
+    """fp32 operations of the WKV at chunk ``chunk``, each exp one: per
+    chunk of qc steps and head, the scores of its qc(qc-1)/2 pairs (a
+    subtraction, an exp, a product and a multiply-add a channel), the bonus
+    (3 a channel a step), their product with v, the carried term and the
+    state update (two (N,N) contractions a step), the state's decay, and
+    log, cumsum and the decay factors of r and k (7 a channel a step)."""
+    ops = 0
+    for c0 in range(0, L, chunk):
+        qc = min(chunk, L - c0)
+        pairs = qc * (qc - 1) // 2
+        ops += B * H * (5 * N * pairs + 2 * N * (pairs + qc) + 3 * N * qc
+                        + 4 * N * N * qc + 2 * N * N + 7 * N * qc)
+    return ops
+
+
 def time_lm_kernels(np, torch, dev):
     """Phase 9: each kernel at the path's shape, beside its bound, its plain
     version and (attention) the library call. Returns {name: fields}."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_scan as ms
+    from repro_torch.kernels import rwkv6_wkv as wk
     out = {}
     *shape, causal, win = PATH_FLASH
     B, S, H, KV, hd = shape
@@ -392,7 +487,8 @@ def time_lm_kernels(np, torch, dev):
     ops = 4 * hd * H * B * pairs                # q.k and p.v, 2 each
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     out["flash_attention"] = dict(err=err, ms=ms_k, plain_ms=plain,
-                                  library_ms=lib, ops=ops, bytes=n_bytes)
+                                  library_ms=lib, ops=ops, bytes=n_bytes,
+                                  rate=BF16_OPS_PER_S)
     del q, k, v
     B, L, H, P, G, N, chunk = PATH_SCAN
     x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
@@ -407,18 +503,37 @@ def time_lm_kernels(np, torch, dev):
     n_bytes = (2 * (2 * x.numel() + Bm.numel() + Cm.numel())
                + 4 * (dt.numel() + A.numel() + B * H * P * N))
     out["mamba2_scan"] = dict(err=err, ms=ms_k, plain_ms=plain,
-                              library_ms=None, ops=ops, bytes=n_bytes)
+                              library_ms=None, ops=ops, bytes=n_bytes,
+                              rate=BF16_OPS_PER_S)
+    del x, dt, A, Bm, Cm
+    B, L, H, N, chunk = PATH_WKV
+    r, k, v, w, u = wkv_inputs(np, torch, PATH_WKV, "bfloat16", "path", dev,
+                               seed=99)
+    err = wkv_err(torch, wk, r, k, v, w, u, chunk, True)
+    ms_k = time_ms(torch, lambda: wk.rwkv6_wkv(r, k, v, w, u, chunk=chunk),
+                   reps=20)
+    plain = time_ms(torch, lambda: wk.reference(r, k, v, w, u, chunk=chunk),
+                    reps=5)
+    # r, k, v and out bf16; w, u and the state float32. The state is fp32
+    # and the contractions read it so: the fp32 rate applies, not the bf16
+    # tensor-core rate
+    n_bytes = (2 * (4 * r.numel()) + 4 * (w.numel() + u.numel()
+                                          + B * H * N * N))
+    out["rwkv6_wkv"] = dict(err=err, ms=ms_k, plain_ms=plain,
+                            library_ms=None, ops=wkv_ops(B, L, H, N, chunk),
+                            bytes=n_bytes, rate=FP32_OPS_PER_S)
     for name, r in out.items():
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r["ops"] / BF16_OPS_PER_S * 1e3
+        ops_ms = r["ops"] / r["rate"] * 1e3
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)")
         print(f"[time] {name} bf16 at the path's shape: {r['ms']:.4f} ms "
               f"(median of 20); bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']} ({r['ops'] / 1e9:.2f} GFLOP = {ops_ms:.4f} "
-              f"ms, {r['bytes'] / 1e6:.1f} MB = {bytes_ms:.4f} ms) = "
+              f"{r['bound_by']} ({r['ops'] / 1e9:.3f} GFLOP = {ops_ms:.4f} "
+              f"ms at {r['rate'] / 1e12:.0f} TFLOP/s, "
+              f"{r['bytes'] / 1e6:.2f} MB = {bytes_ms:.4f} ms) = "
               f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the bound; plain "
               f"version {r['plain_ms']:.4f} ms; library {lib}; max |diff| "
               f"{r['err']:.3g}", flush=True)
@@ -440,9 +555,9 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     from repro_torch.kernels import _build
     from repro_torch.kernels import hedm_reduce as hr
     from repro_torch.kernels.ops import (flash_attention, hedm_reduce,
-                                         mamba2_scan)
+                                         mamba2_scan, rwkv6_wkv)
     from repro_torch.launch import serve as launch_serve
-    counted = (hedm_reduce, flash_attention, mamba2_scan)
+    counted = (hedm_reduce, flash_attention, mamba2_scan, rwkv6_wkv)
 
     def zero_counts():
         for fn in counted:
@@ -581,43 +696,57 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     check_serving_against_cpu(np, torch, dev)
-    check_full_width_prefill_decode(np, torch, dev)
+    check_full_width_prefill_decode(np, torch, dev, "zamba2_7b", 12)
+    check_full_width_prefill_decode(np, torch, dev, "rwkv6_3b", 4)
     gc.collect()
     torch.cuda.empty_cache()
 
+    def serve_main_path(arch, want):
+        """One LM main path at full width and depth, its launch counts set
+        to 0 just before and read just after; ``want(cfg)`` gives the counts
+        it must show. Returns the counts."""
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        served = launch_serve.main(arch=arch, device=dev)
+        serve_s = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in counted}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg, ph = served["cfg"], served["phases"]
+        n_req = len(served["finished"])
+        print(f"[lm] {serve_s:.2f}s wall for {cfg.name} ({cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.param_dtype}): init "
+              f"{ph['init_s']:.2f}s, session {ph['serve_s']:.2f}s; decode "
+              f"{ph['decode_tokens_per_s']:.2f} tokens/s; launches "
+              f"{json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+        print("[lm] phases: " + json.dumps(ph), flush=True)
+        if counts != want(cfg, n_req):
+            raise AssertionError(f"the {cfg.name} path launched {counts}, "
+                                 f"expected {want(cfg, n_req)}")
+        if sorted(p["tokens"] for p in ph["prefill"]) != sorted(
+                len(p) for p in prompts):
+            raise AssertionError(f"the {cfg.name} path served other prompt "
+                                 f"lengths than phase 3 checked")
+        if ph["nonfinite_logits"] or n_req != 8 or any(
+                len(r.generated) != 32 for r in served["finished"]):
+            raise AssertionError(f"{cfg.name} path: {ph['nonfinite_logits']}"
+                                 f" non-finite logits, {n_req} requests "
+                                 f"finished")
+        profile_serving(torch, served["session"], prompts)
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counts
+
     # 8. the LM main path: zamba2-7b serving at full width and depth
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t0 = time.perf_counter()
-    served = launch_serve.main(device=dev)
-    serve_s = time.perf_counter() - t0
-    lm_launches = {fn.__name__: fn.launches for fn in counted}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cfg, ph = served["cfg"], served["phases"]
-    n_req = len(served["finished"])
-    sites = cfg.n_layers // cfg.attn_every
-    print(f"[lm] {serve_s:.2f}s wall for {cfg.name} ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.param_dtype}): init "
-          f"{ph['init_s']:.2f}s, session {ph['serve_s']:.2f}s; launches "
-          f"{json.dumps(lm_launches)}; peak device memory {peak_gb:.2f} GB")
-    print("[lm] phases: " + json.dumps(ph), flush=True)
-    want = {"flash_attention": n_req * sites, "mamba2_scan": n_req *
-            cfg.n_layers, "hedm_reduce": 0}
-    if lm_launches != want:
-        raise AssertionError(f"the LM path launched {lm_launches}, expected "
-                             f"{want}")
-    if sorted(p["tokens"] for p in ph["prefill"]) != sorted(
-            len(p) for p in prompts):
-        raise AssertionError("the LM path served other prompt lengths than "
-                             "phase 3 checked")
-    if ph["nonfinite_logits"] or n_req != 8 or any(
-            len(r.generated) != 32 for r in served["finished"]):
-        raise AssertionError(f"LM path: {ph['nonfinite_logits']} non-finite "
-                             f"logits, {n_req} requests finished")
-    profile_serving(torch, served["session"], prompts)
-    del served
-    gc.collect()
-    torch.cuda.empty_cache()
+    lm_launches = serve_main_path("zamba2-7b", lambda cfg, n: {
+        "hedm_reduce": 0, "flash_attention": n * (cfg.n_layers
+                                                  // cfg.attn_every),
+        "mamba2_scan": n * cfg.n_layers, "rwkv6_wkv": 0})
+    # 8b. rwkv6-3b serving at full width and depth, the zamba2 session freed
+    lm_launches["rwkv6_wkv"] = serve_main_path("rwkv6-3b", lambda cfg, n: {
+        "hedm_reduce": 0, "flash_attention": 0, "mamba2_scan": 0,
+        "rwkv6_wkv": n * cfg.n_layers})["rwkv6_wkv"]
 
     # 9. the LM kernels at the path's shapes
     timed = time_lm_kernels(np, torch, dev)
@@ -632,7 +761,8 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "exact": max_err == 0,
     }]
-    for name, line in [("flash_attention", 110), ("mamba2_scan", 89)]:
+    for name, line in [("flash_attention", 110), ("mamba2_scan", 89),
+                       ("rwkv6_wkv", 80)]:
         r = timed[name]
         kernels.append({
             "name": name, "route": "cuda",

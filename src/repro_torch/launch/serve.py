@@ -3,10 +3,15 @@
 Counterpart of ``repro.launch.serve``. By default it serves zamba2-7b at
 full width and depth on the card, from random weights made from ``--seed``:
 8 requests with prompts of 256 to 2048 tokens (drawn with numpy from the
-seed), 32 new tokens each, on 4 slots of a 4096-token cache.
+seed), 32 new tokens each, on 4 slots of a 4096-token cache. ``--arch
+rwkv6-3b`` serves rwkv6-3b the same way; its state per slot is O(1), so
+the capacity does not bound it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --smoke --device cpu --prompt-len 8 24 --max-new 4 --capacity 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu --prompt-len 8 24 --max-new 4 --capacity 64
 """
 from __future__ import annotations

@@ -75,7 +75,8 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     reference's parameter ``tree`` (numpy arrays). ``dtype`` overrides the
     config's parameter type, as :class:`Model` does; parameters that the
     reference keeps in float32 whatever that type (Mamba2's ``dt_bias``,
-    ``A_log`` and ``D``) stay float32."""
+    ``A_log`` and ``D``; RWKV6's ``w0`` and ``u``) stay float32. Nested
+    parameters (RWKV6's ``mixer.ln_x.scale``) land on the nested module."""
     model = Model(cfg, None, resolve_device(device), dtype)
     filled: set = set()
     _load(model, tree, "", filled)

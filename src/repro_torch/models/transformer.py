@@ -6,14 +6,14 @@ stack is an ``nn.ModuleList`` of per-layer blocks and a Python loop, and
 caches are lists of per-layer caches. Two patterns:
 
   * ``uniform``      -- one homogeneous list of ``attn_mlp`` blocks (dense
-                        FFN) or ``mamba2`` blocks.
+                        FFN), ``mamba2`` blocks or ``rwkv6`` blocks
+                        (time-mix and channel-mix, each after its norm).
   * ``zamba_hybrid`` -- groups of ``attn_every`` Mamba2 blocks, each group
                         followed by the SHARED attention block (weights
                         shared across sites, per-site LoRA deltas on q and
                         k); the remainder layers form a tail.
 
-MoE (qwen3-moe, deepseek) and RWKV6 blocks are not ported yet (ROADMAP §1
-item 9).
+MoE blocks (qwen3-moe, deepseek) are not ported yet (ROADMAP §1 item 9).
 """
 from __future__ import annotations
 
@@ -25,13 +25,13 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (MLP, Params, RMSNorm, const,
                                        dense_init, dt, mlp, rmsnorm)
 
 ZAMBA_LORA_RANK = 64
 MOE_TODO = "MoE blocks are not ported yet: ROADMAP §1 item 9 (moe)"
-RWKV_TODO = "RWKV6 blocks are not ported yet: ROADMAP §1 item 9 (rwkv6)"
 
 
 # ---------------------------------------------------------------------------
@@ -39,20 +39,22 @@ RWKV_TODO = "RWKV6 blocks are not ported yet: ROADMAP §1 item 9 (rwkv6)"
 # ---------------------------------------------------------------------------
 
 class Block(Params):
-    """One block: Mamba2 mixer, or attention + dense SwiGLU FFN."""
+    """One block: Mamba2 mixer, RWKV6 time-mix + channel-mix, or attention
+    + dense SwiGLU FFN."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device, dtype: Optional[torch.dtype] = None):
         super().__init__()
         dtype = dtype or dt(cfg.param_dtype)
-        if cfg.block_kind == "rwkv6":
-            raise NotImplementedError(RWKV_TODO)
         if cfg.block_kind == "mamba2":
             self.norm = RMSNorm(cfg.d_model, dtype, device)
             self.mixer = m2.Mamba2(cfg, gen, device, dtype)
             return
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+        if cfg.block_kind == "rwkv6":
+            self.mixer = rw.RWKV6(cfg, gen, device, dtype)
+            return
         self.attn = attn_mod.Attention(cfg, gen, device, dtype)
         self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
@@ -61,12 +63,29 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
     return Block(cfg, gen, gen.device)
 
 
+def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, rw.RWKVState]:
+    """An RWKV6 block over a whole sequence from a zero state, and its decode
+    state (the WKV state and the last normed input of each sublayer)."""
+    B, L, D = x.shape
+    zeros = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    tm, s_final, x_tm = rw.rwkv6_time_mix(params["mixer"], cfg, h, zeros)
+    x = x + tm
+    h = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, zeros)
+    length = torch.full((B,), L, dtype=torch.int32, device=x.device)
+    return x + cm, rw.RWKVState(s_final, x_tm, x_cm, length)
+
+
 def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward for one block."""
     if cfg.block_kind == "mamba2":
         return x + m2.mamba2_block(params["mixer"], cfg,
                                    rmsnorm(params["norm"], x, cfg.norm_eps))
+    if cfg.block_kind == "rwkv6":
+        return _rwkv_prefill(params, cfg, x)[0]
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(params["attn"], cfg, h, positions)
     return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
@@ -74,11 +93,19 @@ def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
 
 def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
                  cache: Any) -> Tuple[torch.Tensor, Any]:
-    """One-token decode for one block. cache: KVCache | SSMState."""
+    """One-token decode for one block. cache: KVCache | SSMState |
+    RWKVState."""
     if cfg.block_kind == "mamba2":
         h = rmsnorm(params["norm"], x, cfg.norm_eps)
         out, cache = m2.mamba2_decode(params["mixer"], cfg, h, cache)
         return x + out, cache
+    if cfg.block_kind == "rwkv6":
+        h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+        tm, cache = rw.rwkv6_decode(params["mixer"], cfg, h, cache)
+        x = x + tm
+        h = rmsnorm(params["norm2"], x, cfg.norm_eps)
+        cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, cache.x_cm)
+        return x + cm, cache._replace(x_cm=x_cm)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache)
     x = x + out
@@ -94,6 +121,8 @@ def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
         h = rmsnorm(params["norm"], x, cfg.norm_eps)
         out, state = m2.mamba2_prefill(params["mixer"], cfg, h)
         return x + out, state
+    if cfg.block_kind == "rwkv6":
+        return _rwkv_prefill(params, cfg, x)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     out, kv = attn_mod.attention_prefill(params["attn"], cfg, h, positions,
                                          capacity)
@@ -264,6 +293,9 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
         return caches
     if cfg.block_kind == "mamba2":
         return {"layers": [m2.init_ssm_state(cfg, batch, device)
+                           for _ in range(cfg.n_layers)]}
+    if cfg.block_kind == "rwkv6":
+        return {"layers": [rw.init_rwkv_state(cfg, batch, device)
                            for _ in range(cfg.n_layers)]}
     return {"layers": [attn_mod.init_kv_cache(cfg, batch, capacity, device)
                        for _ in range(cfg.n_layers)]}

@@ -106,7 +106,8 @@ class ServeSession:
     def _splice(self, slot: int, caches_new, token: int) -> None:
         """Copy a prefilled single-request cache into batch slot ``slot``:
         every field of every per-layer cache (KVCache k, v, length; SSMState
-        h, the three conv tails, length) has the batch first."""
+        h, the three conv tails, length; RWKVState s, x_tm, x_cm, length)
+        has the batch first."""
         for kind, layers in caches_new.items():
             for dst, src in zip(self.caches[kind], layers):
                 for d, s in zip(dst, src):

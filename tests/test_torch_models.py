@@ -1,7 +1,8 @@
 """The port's LM path against the reference package on the smoke configs.
 
 For zamba2-7b (Mamba2 + shared attention), h2o-danube3-4b (GQA with a
-sliding window) and qwen3-32b (GQA with qk-norm), the reference's
+sliding window), qwen3-32b (GQA with qk-norm) and rwkv6-3b (WKV6
+time-mix + channel-mix), the reference's
 ``init_model`` makes the weights, ``params_from_jax`` hands them to the port
 as numpy, and the same numpy tokens go through both: forward hidden states
 and logits, prefill logits and caches, and one decode step must agree
@@ -27,7 +28,7 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import prefill_step
 
-ARCHS = ["zamba2_7b", "h2o_danube3_4b", "qwen3_32b"]
+ARCHS = ["zamba2_7b", "h2o_danube3_4b", "qwen3_32b", "rwkv6_3b"]
 B, S = 2, 20                 # S: a short chunk of the smoke SSM chunk (32)
 
 
@@ -119,6 +120,32 @@ def test_prefill_decode_equals_forward(pair):
     assert rel(dec[:, :cfg.vocab].numpy(), ref[:, :cfg.vocab].numpy()) < 5e-3
 
 
+def test_rwkv_decode_chain_matches_forward_and_reference():
+    """Five decode steps from an empty state equal forward over the five
+    tokens (tests/test_serve.py:88-108, 5e-3 relative) and the reference's
+    own chain on the same converted weights (1e-4 relative)."""
+    jcfg = jax_registry.get_smoke_config("rwkv6_3b")
+    cfg = registry.get_smoke_config("rwkv6_3b")
+    jparams = JM.init_model(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (2, 5)) \
+        .astype(np.int32)
+    jstep = jax.jit(lambda p, t, c: JM.decode_step(p, jcfg, t, c))
+    jcaches = JM.init_decode_state(jcfg, 2, 16)
+    caches = TM.init_decode_state(cfg, 2, 16, "cpu")
+    for t in range(5):
+        jlogits, jcaches = jstep(jparams, jnp.asarray(toks[:, t:t + 1]),
+                                 jcaches)
+        logits, caches = TM.decode_step(
+            params, cfg, torch.from_numpy(toks[:, t:t + 1]).long(), caches)
+        assert rel(logits.numpy(), np.asarray(jlogits)) < 1e-4, t
+    hidden = TM.forward(params, cfg, {"tokens": torch.from_numpy(toks).long()})
+    ref = TM.logits(params, cfg, hidden[:, -1])
+    assert rel(logits.numpy(), ref.numpy()) < 5e-3
+    assert all(int(c.length.min()) == 5 for c in caches["layers"])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_model_has_the_reference_layout(arch):
     """Seeded random init makes every parameter the converter fills, with
@@ -150,18 +177,20 @@ def test_param_count_matches_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_size_model_on_meta_device(arch):
     """The full configs build (on the meta device: no memory) with about
-    the analytic parameter count; zamba2-7b is ~6.8 B."""
+    the analytic parameter count; zamba2-7b is ~6.8 B, rwkv6-3b within 1%
+    of its analytic 3,098,542,080."""
     cfg = registry.get_config(arch)
     n = sum(p.numel() for p in TM.Model(cfg, None, "meta").parameters())
     assert abs(n - cfg.param_count()) / cfg.param_count() < 0.01
     if arch == "zamba2_7b":
         assert 6.7e9 < n < 6.9e9
+    if arch == "rwkv6_3b":
+        assert cfg.param_count() == 3_098_542_080
 
 
 @pytest.mark.parametrize("arch,needle", [
     ("deepseek_v2_lite_16b", "(MLA|MoE)"), ("qwen3_moe_30b_a3b", "MoE"),
-    ("rwkv6_3b", "RWKV6"), ("internvl2_2b", "frontend"),
-    ("hubert_xlarge", "frontend")])
+    ("internvl2_2b", "frontend"), ("hubert_xlarge", "frontend")])
 def test_unported_parts_raise(arch, needle):
     with pytest.raises(NotImplementedError, match=f"{needle}.*ROADMAP"):
         TM.init_model(torch.Generator().manual_seed(0),

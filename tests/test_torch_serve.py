@@ -37,7 +37,7 @@ def _serve(sess, reqs):
     return {r.request_id: r.generated for r in done}
 
 
-@pytest.mark.parametrize("arch", ["zamba2_7b", "h2o_danube3_4b"])
+@pytest.mark.parametrize("arch", ["zamba2_7b", "h2o_danube3_4b", "rwkv6_3b"])
 def test_session_matches_reference_session(arch):
     jcfg = jax_registry.get_smoke_config(arch)
     cfg = registry.get_smoke_config(arch)
@@ -57,15 +57,17 @@ def test_session_matches_reference_session(arch):
     assert sess.nonfinite_logits == 0
 
 
-def test_launcher_serves_smoke_config_on_cpu():
-    out = launch.main(arch="zamba2-7b", smoke=True, requests=3, slots=2,
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_launcher_serves_smoke_config_on_cpu(arch):
+    out = launch.main(arch=arch, smoke=True, requests=3, slots=2,
                       prompt_len=(6, 20), max_new=3, capacity=32,
                       device="cpu", verbose=False)
     ph = out["phases"]
     assert len(out["finished"]) == 3
     assert all(len(r.generated) == 3 for r in out["finished"])
     assert [p["request"] for p in ph["prefill"]] == [0, 1, 2]
-    cfg = registry.get_smoke_config("zamba2_7b")
+    cfg = registry.get_smoke_config(arch)
+    assert out["cfg"] == cfg
     assert [p["tokens"] for p in ph["prefill"]] == [
         len(p) for p in launch.draw_prompts(cfg.vocab, 3, (6, 20), 0)]
     assert ph["decode_tokens"] == 3 * 2      # one token of each at prefill

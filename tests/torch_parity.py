@@ -144,3 +144,36 @@ def scan_inputs(B, L, H, P, G, N, seed=0):
     Bm = rng.standard_normal((B, L, G, N)).astype(np.float32)
     Cm = rng.standard_normal((B, L, G, N)).astype(np.float32)
     return x, dt, A, Bm, Cm
+
+
+#: rwkv6_wkv cases ``(B, L, H, N, chunk)``: the shapes of
+#: tests/test_kernels.py, then a prime L (97: no chunk divides it) at the
+#: kernel's chunk of 32 and at 64.
+WKV_SHAPES = [
+    (2, 96, 3, 8, 32),
+    (1, 64, 2, 16, 16),
+    (1, 128, 4, 32, 32),
+    (1, 97, 3, 16, 32),
+    (1, 97, 2, 64, 64),
+]
+
+
+def wkv_inputs(B, L, H, N, seed=0, strong=False, path=False):
+    """r, k, v (B,L,H,N) and u (H,N) standard normal, w (B,L,H,N) =
+    0.45 + 0.5 sigmoid(normal) as in tests/test_kernels.py; with ``strong``
+    uniform in [1e-4, 0.1] (a decay whose cumulative log over a chunk of 32
+    reaches -295: exp(-lcum) would overflow float32); with ``path``
+    exp(-exp(-4 + 0.5 normal)), about 0.98 as rwkv6-3b's initial
+    ``w0 = -4`` gives (a long memory); float32."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, L, H, N)).astype(np.float32)
+               for _ in range(3))
+    shape = (B, L, H, N)
+    if strong:
+        w = rng.uniform(1e-4, 0.1, shape)
+    elif path:
+        w = np.exp(-np.exp(-4 + 0.5 * rng.standard_normal(shape)))
+    else:
+        w = 0.45 + 0.5 / (1 + np.exp(-rng.standard_normal(shape)))
+    u = rng.standard_normal((H, N)).astype(np.float32)
+    return r, k, v, w.astype(np.float32), u

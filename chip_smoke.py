@@ -7,7 +7,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   nvcc per source, all started together.
+   nvcc per source, all started together; then one ``[ptxas]`` line per
+   kernel function from the build logs (registers, spills, stack).
 3. Kernels vs their plain versions on the card. ``hedm_reduce`` at the test
    shapes (float32 and uint16) and at (8, 2048, 2048): masks and counts
    equal (``torch.equal``). ``flash_attention`` at the shapes of
@@ -18,8 +19,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    L (100) and the zamba2 prefill shape (1, 2048, 112 heads, P 64, G 1,
    N 64). Both also at the path's widths and every prompt length the LM
    main path (phase 8) draws, in bfloat16: each of those prefills has a
-   ragged last tile and chunk. Float32 within 3e-5 (attention) and 2e-4
-   (scan) of the plain version; bfloat16 against the plain version run in
+   ragged last tile and chunk; and at the tensor-core kernels' tile edges
+   in bfloat16 (attention S = 127, 128, 129, 255; the scan L = 127, 129).
+   bfloat16 runs on the tensor-core kernels, float32 on the CUDA-core
+   ones (the wrappers' dispatch rule). Float32 within 3e-5 (attention) and
+   2e-4 (scan) of the plain version; bfloat16 against the plain version run in
    float32 on the same bf16 inputs, within 1e-3 (attention) or 2e-2 (scan)
    plus one bf16 rounding step, 2^-7 |ref|, of each output value. Then
    the NF-HEDM path's stages on a small scan against the CPU: stage 1 bit
@@ -49,7 +53,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    width and depth (81 layers), bf16, random weights from seed 0; 8
    requests with prompts of 256..2048 tokens (numpy seed 0), 32 new tokens
    each, 4 slots, capacity 4096. Every logit finite; ``flash_attention``
-   launched 8 x 13 and ``mamba2_scan`` 8 x 81 times. Then the drained
+   launched 8 x 13 and ``mamba2_scan`` 8 x 81 times, every launch on the
+   tensor-core kernel (``launches_tc``). Then the drained
    session serves its first four prompts again under ``torch.profiler``:
    the step that admits them (4 prefills, 1 decode step) and the 4 decode
    steps after it give the card's busy share (kernel time over wall time).
@@ -58,10 +63,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    launched 8 x 32 times and no other kernel.
 9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
    paths' shapes (S = L = 2048, bf16; the decay float32), median of 20
-   launches by CUDA events after warm-up, beside each one's bound, its
-   plain version and, for attention,
+   launches by CUDA events after warm-up (the card kept busy while the
+   host enqueues, so host launch time is not counted), beside each one's
+   bound, its plain version, for attention
    ``torch.nn.functional.scaled_dot_product_attention`` (the port never
-   calls it).
+   calls it), and for attention and the scan the CUDA-core kernel on the
+   same bf16 inputs (the earlier design).
 
 Each main path (4, 8 and 8b) runs with every launch count set to 0 just
 before and read just after. The last three lines of standard output are the
@@ -69,6 +76,7 @@ card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import ctypes
 import gc
 import json
 import os
@@ -129,14 +137,52 @@ def kernel_cases(np):
     return cases
 
 
+def ptxas_summary(log):
+    """One line per kernel function of a build log (``-Xptxas=-v``): its
+    demangled-enough name, registers, spills, stack and static shared
+    memory, and any compiler warning about it."""
+    import re
+    if not log.exists():
+        return ["no build log (library built earlier)"]
+    out, name, stack = [], None, ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            for short in ("flash_fwd_tc", "flash_fwd", "ssd_scan_tc",
+                          "ssd_scan", "wkv6", "hedm_reduce_kernel"):
+                if short in name:
+                    tmpl = re.search(r"I((?:13__nv_bfloat16|Li\d+E|f|t)+)E",
+                                     name)
+                    args = re.findall(r"13__nv_bfloat16|Li\d+E|f|t",
+                                      tmpl.group(1)) if tmpl else []
+                    arg = ",".join({"13__nv_bfloat16": "bf16", "f": "f32",
+                                    "t": "u16"}.get(a, a[2:-1])
+                                   for a in args)
+                    name = f"{short}<{arg}>" if arg else short
+                    break
+        elif "stack frame" in line:
+            stack = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {stack}")
+            name = None
+        elif "warning" in line.lower() or "Performance Loss" in line:
+            out.append(line.strip())
+    return out
+
+
 def time_ms(torch, fn, reps, warmup=2):
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events).
+    Before each run the card spins for ~1 ms (``torch.cuda._sleep``) while
+    the host enqueues ``fn``, so the events time the device's work and not
+    the host's launch latency (PR 15's times included it)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -155,6 +201,9 @@ FLASH_CHECKS = [
     ((1, 200, 8, 2, 120, True, 48), BOTH),
     ((1, 2048, 32, 32, 112, True, 0), ("bfloat16",)),   # zamba2 prefill
     ((1, 2048, 32, 8, 120, True, 1024), ("bfloat16",)),  # danube3-like GQA
+    # the tensor-core kernel's tile edges (128 query rows, 64 keys a tile)
+    *[((1, S, 32, 32, 112, True, 0), ("bfloat16",)) for S in (127, 128, 129,
+                                                             255)],
 ]
 # mamba2_scan checks: (B, L, H, P, G, N, chunk), types
 SCAN_CHECKS = [
@@ -163,6 +212,8 @@ SCAN_CHECKS = [
         (1, 256, 8, 16, 8, 8, 64)]],
     ((1, 100, 4, 16, 2, 8, 32), BOTH),        # ragged L
     ((1, 2048, 112, 64, 1, 64, 128), ("bfloat16",)),    # zamba2 prefill
+    # the tensor-core kernel's chunk edge (128 steps)
+    *[((1, L, 112, 64, 1, 64, 128), ("bfloat16",)) for L in (127, 129)],
 ]
 # rwkv6_wkv checks: (B, L, H, N, chunk), types, decay ("test" is 0.45 +
 # 0.5 sigmoid(normal), "strong" uniform in [1e-4, 0.1], "path" about 0.98)
@@ -466,6 +517,21 @@ def wkv_ops(B, L, H, N, chunk):
     return ops
 
 
+def cuda_core_kernel(torch, mod, *args):
+    """``mod``'s CUDA-core kernel on bf16 inputs that the wrapper sends to
+    the tensor cores: the earlier design, timed beside the new one. ``args``
+    as the C function takes them after the input pointers; returns a
+    launcher."""
+    fn = mod._function(mod._SYMBOLS[torch.bfloat16])
+
+    def launch(*ptrs):
+        err = fn(*ptrs, *args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{mod.__name__} CUDA-core launch: error "
+                               f"{err}")
+    return launch
+
+
 def time_lm_kernels(np, torch, dev):
     """Phase 9: each kernel at the path's shape, beside its bound, its plain
     version and (attention) the library call. Returns {name: fields}."""
@@ -483,19 +549,30 @@ def time_lm_kernels(np, torch, dev):
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True), reps=20)
+    o = torch.empty_like(q)
+    core = cuda_core_kernel(torch, fa, B, S, H, KV, hd, hd ** -0.5, 1, 0)
+    core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
+                                          v.data_ptr(), o.data_ptr()),
+                      reps=20)
     pairs = S * (S + 1) // 2                    # causal (query, key) pairs
     ops = 4 * hd * H * B * pairs                # q.k and p.v, 2 each
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     out["flash_attention"] = dict(err=err, ms=ms_k, plain_ms=plain,
                                   library_ms=lib, ops=ops, bytes=n_bytes,
-                                  rate=BF16_OPS_PER_S)
-    del q, k, v
+                                  rate=BF16_OPS_PER_S, cuda_core_ms=core_ms)
+    del q, k, v, o
     B, L, H, P, G, N, chunk = PATH_SCAN
     x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
                                    seed=99)
     err = scan_err(torch, ms, x, dt, A, Bm, Cm, chunk)
     ms_k = time_ms(torch, lambda: ms.mamba2_scan(x, dt, A, Bm, Cm), reps=20)
     plain = time_ms(torch, lambda: ms.reference(x, dt, A, Bm, Cm), reps=5)
+    y = torch.empty_like(x)
+    hf = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    core = cuda_core_kernel(torch, ms, B, L, H, P, G, N, chunk)
+    core_ms = time_ms(torch, lambda: core(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), hf.data_ptr()), reps=20)
     ops = 0
     for c0 in range(0, L, chunk):               # per chunk of Qc steps:
         qc = min(chunk, L - c0)                 # C.B^T, M.x, C.h^T, update
@@ -504,8 +581,8 @@ def time_lm_kernels(np, torch, dev):
                + 4 * (dt.numel() + A.numel() + B * H * P * N))
     out["mamba2_scan"] = dict(err=err, ms=ms_k, plain_ms=plain,
                               library_ms=None, ops=ops, bytes=n_bytes,
-                              rate=BF16_OPS_PER_S)
-    del x, dt, A, Bm, Cm
+                              rate=BF16_OPS_PER_S, cuda_core_ms=core_ms)
+    del x, dt, A, Bm, Cm, y, hf
     B, L, H, N, chunk = PATH_WKV
     r, k, v, w, u = wkv_inputs(np, torch, PATH_WKV, "bfloat16", "path", dev,
                                seed=99)
@@ -529,6 +606,9 @@ def time_lm_kernels(np, torch, dev):
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)")
+        core = ("" if "cuda_core_ms" not in r else
+                f"; the CUDA-core kernel on the same inputs "
+                f"{r['cuda_core_ms']:.4f} ms")
         print(f"[time] {name} bf16 at the path's shape: {r['ms']:.4f} ms "
               f"(median of 20); bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['ops'] / 1e9:.3f} GFLOP = {ops_ms:.4f} "
@@ -536,7 +616,7 @@ def time_lm_kernels(np, torch, dev):
               f"{r['bytes'] / 1e6:.2f} MB = {bytes_ms:.4f} ms) = "
               f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the bound; plain "
               f"version {r['plain_ms']:.4f} ms; library {lib}; max |diff| "
-              f"{r['err']:.3g}", flush=True)
+              f"{r['err']:.3g}{core}", flush=True)
     return out
 
 
@@ -562,6 +642,8 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     def zero_counts():
         for fn in counted:
             fn.launches = 0
+        for fn in (flash_attention, mamba2_scan):
+            fn.launches_tc = 0
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -580,11 +662,15 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     print(f"[build] {len(libs)} kernel(s) in "
           f"{time.perf_counter() - t0:.2f}s: "
           + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
-    for p in libs.values():
-        log = p.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                print(f"[build] {line}")
+    for name, p in libs.items():
+        for line in ptxas_summary(p.with_suffix(".log")):
+            print(f"[ptxas] {name}: {line}")
+    tc_smem = {"flash_fwd_tc, hd 112": _build.bind(
+        "flash_attention", "flash_attention_tc_smem_bytes",
+        [ctypes.c_int])(112), "ssd_scan_tc": _build.bind(
+        "mamba2_scan", "mamba2_scan_tc_smem_bytes", [])()}
+    print("[ptxas] dynamic shared memory a block: " + ", ".join(
+        f"{k} {v} bytes" for k, v in tc_smem.items()), flush=True)
 
     # 3. kernel vs plain version, then the path's stages vs the CPU
     max_err = 0
@@ -704,13 +790,16 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     def serve_main_path(arch, want):
         """One LM main path at full width and depth, its launch counts set
         to 0 just before and read just after; ``want(cfg)`` gives the counts
-        it must show. Returns the counts."""
+        it must show. Returns the counts and those of the tensor-core
+        kernels."""
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         t0 = time.perf_counter()
         served = launch_serve.main(arch=arch, device=dev)
         serve_s = time.perf_counter() - t0
         counts = {fn.__name__: fn.launches for fn in counted}
+        tc = {fn.__name__: fn.launches_tc for fn in (flash_attention,
+                                                     mamba2_scan)}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         cfg, ph = served["cfg"], served["phases"]
         n_req = len(served["finished"])
@@ -736,17 +825,24 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         del served
         gc.collect()
         torch.cuda.empty_cache()
-        return counts
+        return counts, tc
 
     # 8. the LM main path: zamba2-7b serving at full width and depth
-    lm_launches = serve_main_path("zamba2-7b", lambda cfg, n: {
+    lm_launches, lm_tc = serve_main_path("zamba2-7b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": n * (cfg.n_layers
                                                   // cfg.attn_every),
         "mamba2_scan": n * cfg.n_layers, "rwkv6_wkv": 0})
+    # every K2 and K3 launch of the zamba2 path on the tensor-core kernels
+    print(f"[lm] tensor-core launches on the zamba2 path: "
+          f"{json.dumps(lm_tc)}", flush=True)
+    for name, n in lm_tc.items():
+        if n != lm_launches[name]:
+            raise AssertionError(f"{name}: {n} of {lm_launches[name]} "
+                                 f"launches on the tensor-core kernel")
     # 8b. rwkv6-3b serving at full width and depth, the zamba2 session freed
     lm_launches["rwkv6_wkv"] = serve_main_path("rwkv6-3b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": 0, "mamba2_scan": 0,
-        "rwkv6_wkv": n * cfg.n_layers})["rwkv6_wkv"]
+        "rwkv6_wkv": n * cfg.n_layers})[0]["rwkv6_wkv"]
 
     # 9. the LM kernels at the path's shapes
     timed = time_lm_kernels(np, torch, dev)
@@ -769,6 +865,8 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": lm_launches[name],
+            **({"launches_tc": lm_tc[name],
+                "cuda_core_ms": r["cuda_core_ms"]} if name in lm_tc else {}),
             "max_abs_err": max(errs[name], r["err"]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -7,16 +7,27 @@ Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel) and
 accumulation in fp32, masked entries at -1e30, the row sum clamped at
 1e-30 (a row no key reaches gives 0).
 
-:func:`flash_attention` is the wrapper. On a CUDA tensor it launches the
-hand-written kernel ``csrc/flash_attention.cu`` (built for sm_90a at first
-use, see `repro_torch.kernels._build`) or raises; on a CPU tensor it runs
-:func:`reference`. ``flash_attention.launches`` counts kernel launches.
+:func:`flash_attention` is the wrapper. On a CPU tensor it runs
+:func:`reference`. On a CUDA tensor it launches one of the two kernels of
+``csrc/flash_attention.cu`` (built for sm_90a at first use, see
+`repro_torch.kernels._build`) or raises; the rule (:func:`on_tensor_cores`):
+
+* bfloat16 with hd % 8 == 0, hd <= 128 and q, k, v on 16-byte boundaries
+  (TMA's row strides and addresses) -> ``flash_fwd_tc``, on ``wgmma`` with
+  TMA loads, 128 query rows of one head a block;
+* everything else (float32, whose 3e-5 bound the tensor cores cannot hold;
+  bfloat16 with another hd or off those boundaries) -> ``flash_fwd``, on
+  the fp32 CUDA cores, 64 rows of the grouped query matrix a block.
+
+No kernel falls back to the other or to :func:`reference`: a failed build
+or launch raises. ``flash_attention.launches`` counts kernel launches of
+both, ``flash_attention.launches_tc`` those of the tensor-core kernel.
 
 The TPU kernel's ``block_q``/``block_k`` sized VMEM tiles and ``interpret``
-chose Pallas' interpreter; the card's tile (64 rows of the grouped query
-matrix, 32 keys) is fixed by its shared memory, and the CPU path is
-:func:`reference` itself. The source note in ``csrc/flash_attention.cu``
-says what bounds the kernel and what its design does about it.
+chose Pallas' interpreter; the card's tiles are fixed by its shared memory,
+and the CPU path is :func:`reference` itself. The source note in
+``csrc/flash_attention.cu`` says what bounds the kernels and what their
+designs do about it.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ MAX_HEAD_DIM = 128
 MAX_GROUP = 64                       # query heads per kv head: rows per tile
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+_SYMBOL_TC = "flash_attention_bf16_tc"
 
 
 def _mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -93,9 +105,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,S,H,hd), k/v (B,S,KV,hd), one type (float32 or bfloat16), on one
     device -> (B,S,H,hd) in q's type on that device.
 
-    A CUDA input launches the kernel on the current stream (contiguous
-    tensors, hd <= 128 and at most 64 query heads per kv head; anything else
-    raises); a CPU input runs :func:`reference`."""
+    A CUDA input launches a kernel on the current stream, the one
+    :func:`on_tensor_cores` names (contiguous tensors, hd <= 128 and, on the
+    CUDA cores, at most 64 query heads per kv head; anything else raises); a
+    CPU input runs :func:`reference`."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale)
@@ -105,7 +118,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention needs contiguous q, k and v")
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    if hd > MAX_HEAD_DIM or H // KV > MAX_GROUP:
+    tc = on_tensor_cores(q, k, v)
+    if hd > MAX_HEAD_DIM or (not tc and H // KV > MAX_GROUP):
         raise ValueError(f"flash_attention takes hd <= {MAX_HEAD_DIM} and at "
                          f"most {MAX_GROUP} query heads per kv head, got hd "
                          f"{hd}, {H // KV}")
@@ -114,7 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if scale is None:
         scale = hd ** -0.5
-    fn = _function(q.dtype)
+    fn = _function(_SYMBOL_TC if tc else _SYMBOLS[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -122,18 +136,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  int(window), stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.launches_tc += tc
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+
+
+def on_tensor_cores(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> bool:
+    """The dispatch rule: bfloat16 with hd % 8 == 0 and hd <= 128 and q, k,
+    v on 16-byte boundaries go to the tensor-core kernel; the rest to the
+    CUDA-core one."""
+    hd = q.shape[3]
+    return (q.dtype == torch.bfloat16 and hd % 8 == 0
+            and hd <= MAX_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
 
 _FUNCTIONS = {}
 
 
-def _function(dtype: torch.dtype):
-    if dtype not in _FUNCTIONS:
+def _function(symbol: str):
+    if symbol not in _FUNCTIONS:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _FUNCTIONS[dtype] = _build.bind(
-            "flash_attention", _SYMBOLS[dtype],
+        _FUNCTIONS[symbol] = _build.bind(
+            "flash_attention", symbol,
             [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p])
-    return _FUNCTIONS[dtype]
+    return _FUNCTIONS[symbol]

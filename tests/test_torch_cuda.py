@@ -28,7 +28,8 @@ from repro_torch.models import rwkv6 as rw
 from repro_torch.serve.engine import Request, ServeSession, prefill_step
 from torch_parity import HEDM_REDUCE_CASES as CASES
 from torch_parity import (FLASH_SHAPES, SCAN_SHAPES, WKV_SHAPES,
-                          flash_inputs, scan_inputs, wkv_inputs)
+                          flash_inputs, scan_float64, scan_inputs,
+                          wkv_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -171,6 +172,105 @@ def test_mamba2_scan_kernel_matches_plain_version(card, shape, dtype):
         scale = 1e-5 if shape in PATH_SCAN_SHAPES else 0.0
         assert_close(y, y_ref, 2e-4 + scale * float(y_ref.abs().max()), 0.0)
         assert_close(h, h_ref, 2e-4 + scale * float(h_ref.abs().max()), 0.0)
+
+
+#: the tensor-core kernels' tile edges at the path's widths, bf16: the
+#: attention tile of 128 query rows (64 a warpgroup, 64 keys a K/V tile)
+#: and the scan chunk of 128
+EDGE_FLASH_SHAPES = [(1, S, 32, 32, 112, True, 0) for S in (127, 128, 129,
+                                                           255)]
+EDGE_SCAN_SHAPES = [(1, L, 112, 64, 1, 64, 128) for L in (127, 129)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,win", EDGE_FLASH_SHAPES)
+def test_flash_attention_tile_edges_bf16(card, B, S, H, KV, hd, causal,
+                                         win):
+    """bf16 on the tensor-core kernel against the plain version run in
+    float32 on the same inputs, within 1e-3 + 2^-7 |ref|."""
+    q, k, v = (torch.from_numpy(a).to(card).to(torch.bfloat16)
+               for a in flash_inputs(B, S, H, KV, hd, seed=S + hd))
+    before = fa.flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before + 1
+    ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
+                       window=win)
+    assert_close(out, ref, 1e-3, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("shape", EDGE_SCAN_SHAPES, ids=str)
+def test_mamba2_scan_tile_edges_bf16(card, shape):
+    """bf16 on the tensor-core kernel against the plain version run in
+    float32 on the same inputs: y within 2e-2 + 2^-7 |ref|, h within
+    2e-2."""
+    B, L, H, P, G, N, chunk = shape
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(card)
+                        for a in scan_inputs(B, L, H, P, G, N, seed=L + P))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    before = ms.mamba2_scan.launches_tc
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ms.mamba2_scan.launches_tc == before + 1
+    y_ref, h_ref = ms.reference(x.float(), dt, A, Bm.float(), Cm.float(),
+                                chunk=chunk)
+    assert_close(y, y_ref, 2e-2, 2.0 ** -7)
+    assert_close(h, h_ref, 2e-2, 0.0)
+
+
+@pytest.mark.parametrize("shape", PATH_SCAN_SHAPES, ids=str)
+def test_mamba2_scan_float32_matches_float64_recurrence(card, shape):
+    """Which side errs: the float32 kernel and the float32 plain version,
+    each against the recurrence in float64 on the card, within half the
+    card bound of the two against each other, (2e-4 + 1e-5 max |ref|) / 2,
+    for y and for h. Both within it keeps the kernel within the full bound
+    of its plain version."""
+    B, L, H, P, G, N, chunk = shape
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(card)
+                        for a in scan_inputs(B, L, H, P, G, N, seed=L + P))
+    y64, h64 = scan_float64(x, dt, A, Bm, Cm)
+    got = {"kernel": mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk),
+           "plain version": ms.reference(x, dt, A, Bm, Cm, chunk=chunk)}
+    torch.cuda.synchronize()
+    for name, (y, h) in got.items():
+        for out, ref in ((y, y64), (h, h64)):
+            bound = (2e-4 + 1e-5 * float(ref.abs().max())) / 2
+            err = float((out.double() - ref).abs().max())
+            assert err <= bound, f"{name}: max |diff| {err:.3g} > {bound:.3g}"
+
+
+@pytest.mark.parametrize("dtype,hd,tc", [
+    ("bfloat16", 112, True), ("bfloat16", 120, True), ("bfloat16", 64, True),
+    ("bfloat16", 100, False), ("float32", 112, False)])
+def test_flash_attention_dispatch(card, dtype, hd, tc):
+    """bf16 with hd % 8 == 0 and hd <= 128 goes to the tensor-core kernel;
+    float32 and any other hd to the CUDA-core one. Both count in
+    ``launches``, the first also in ``launches_tc``."""
+    q, k, v = (torch.from_numpy(a).to(card).to(getattr(torch, dtype))
+               for a in flash_inputs(1, 96, 4, 2, hd, seed=hd))
+    n, n_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    assert fa.on_tensor_cores(q, k, v) == tc
+    flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    assert fa.flash_attention.launches_tc == n_tc + tc
+
+
+@pytest.mark.parametrize("dtype,P,N,tc", [
+    ("bfloat16", 64, 64, True), ("bfloat16", 16, 8, True),
+    ("bfloat16", 12, 8, False), ("float32", 64, 64, False)])
+def test_mamba2_scan_dispatch(card, dtype, P, N, tc):
+    """bf16 with P % 8 == 0 and N % 8 == 0 goes to the tensor-core kernel;
+    float32 and any other P or N to the CUDA-core one."""
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(card)
+                        for a in scan_inputs(1, 100, 4, P, 2, N, seed=P))
+    low = getattr(torch, dtype)
+    x, Bm, Cm = x.to(low), Bm.to(low), Cm.to(low)
+    n, n_tc = ms.mamba2_scan.launches, ms.mamba2_scan.launches_tc
+    assert ms.on_tensor_cores(x, Bm, Cm) == tc
+    mamba2_scan(x, dt, A, Bm, Cm, chunk=32)
+    torch.cuda.synchronize()
+    assert ms.mamba2_scan.launches == n + 1
+    assert ms.mamba2_scan.launches_tc == n_tc + tc
 
 
 @pytest.mark.parametrize("shape,dtype,decay", WKV_CASES, ids=str)

@@ -16,7 +16,7 @@ import torch
 from repro.kernels.flash_attention_ref import reference as jax_reference
 from repro_torch.kernels import flash_attention as port
 from repro_torch.kernels.ops import flash_attention
-from torch_parity import FLASH_SHAPES, flash_inputs
+from torch_parity import FLASH_SHAPES, flash_inputs, flash_tc_emulation
 
 jax_reference = jax.jit(jax_reference, static_argnames=("causal", "window",
                                                         "scale"))
@@ -55,6 +55,40 @@ def test_first_causal_row_is_its_own_value():
     out = flash_attention(q, k, v, causal=True)
     assert torch.isfinite(out).all()
     assert torch.allclose(out[0, 0], v[0, 0].expand(2, 16), atol=1e-6)
+
+
+#: zamba2's attention widths (32 heads of 112) at ragged lengths: 285
+#: leaves 29 rows in the last 128-row tile, 129 one row past a tile
+PATH_WIDTH_FLASH = [(1, S, 32, 32, 112) for S in (285, 129)]
+
+
+def _tc_excess(shape, split):
+    """The card bound's worst excess (<= 0 holds) and the number of
+    elements past it: the tensor-core kernel's rounding against the plain
+    version in float32 on the same bf16 inputs, 1e-3 + 2^-7 |ref|."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in flash_inputs(*shape, seed=shape[1] + shape[4]))
+    ref = port.reference(q.float(), k.float(), v.float())
+    out = flash_tc_emulation(q, k, v, split=split)
+    assert out.dtype == torch.bfloat16
+    excess = (out.float() - ref).abs() - (1e-3 + 2.0 ** -7 * ref.abs())
+    return float(excess.max()), int((excess > 0).sum())
+
+
+@pytest.mark.parametrize("shape", PATH_WIDTH_FLASH, ids=str)
+def test_tensor_core_rounding_holds_the_card_bound(shape):
+    """P entering the tensor cores as a bf16 pair hi + lo, q, k, v as they
+    are, fp32 sums, bf16 out: within the card bound."""
+    worst, n_bad = _tc_excess(shape, split=True)
+    assert n_bad == 0, worst
+
+
+def test_single_bf16_rounding_breaks_the_card_bound():
+    """Why the kernel splits P: rounded once to bf16 before P V, outputs
+    near 0 miss the card bound (the row sum from the rounded P does not
+    help either)."""
+    worst, n_bad = _tc_excess(PATH_WIDTH_FLASH[0], split=False)
+    assert n_bad > 0 and worst > 0
 
 
 @pytest.mark.parametrize("q,k,v,error", [

@@ -22,7 +22,8 @@ from repro.models import mamba2 as jax_m2
 from repro_torch.kernels import mamba2_scan as port
 from repro_torch.kernels.ops import mamba2_scan
 from repro_torch.models import mamba2 as port_m2
-from torch_parity import SCAN_SHAPES, scan_inputs
+from torch_parity import (SCAN_SHAPES, scan_float64, scan_inputs,
+                          scan_tc_emulation)
 
 jax_reference = jax.jit(jax_reference)
 pallas_scan = jax.jit(pallas_kernel, static_argnames=("chunk", "interpret"))
@@ -55,6 +56,89 @@ def test_plain_version_matches_pallas_interpret(shape):
                            interpret=True)
     np.testing.assert_allclose(y, np.asarray(y_k), rtol=0, atol=2e-4)
     np.testing.assert_allclose(h, np.asarray(h_k), rtol=0, atol=2e-4)
+
+
+def test_plain_version_matches_recurrence_under_fast_decay():
+    """A = -e^2 on every head: the cumulative log-decay of a chunk of 128
+    passes -800, where a float32 step is ~6e-5. The plain version takes
+    each decay as a segment sum, never as a difference of two prefix sums,
+    and stays within 2e-4 of the recurrence. (The Pallas kernel takes
+    differences and misses 2e-4 here, so it is held to the port only at
+    the shapes above.)"""
+    shape = (1, 256, 4, 16, 1, 16, 128)
+    B, L, H, P, G, N, chunk = shape
+    x, dt, A, Bm, Cm = scan_inputs(B, L, H, P, G, N, seed=7)
+    A = np.full(H, -np.exp(2.0), np.float32)
+    assert np.cumsum(dt[0, :chunk] * A, axis=0).min() < -100
+    y, h = mamba2_scan(*map(torch.from_numpy, (x, dt, A, Bm, Cm)),
+                       chunk=chunk)
+    y_ref, h_ref = jax_reference(*map(jnp.asarray, (x, dt, A, Bm, Cm)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=0,
+                               atol=2e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), rtol=0,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("L", [285, 1781])
+def test_plain_version_within_half_the_card_bound_of_float64(L):
+    """zamba2's scan widths (112 heads, P 64, N 64, chunk 128), float32:
+    the plain version within half the card bound of the recurrence in
+    float64, (2e-4 + 1e-5 max |ref|) / 2 for y and for h, the bound
+    tests/test_torch_cuda.py holds the kernel to on the card. Decays taken
+    as differences of prefix sums missed it in y at L = 1781."""
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           scan_inputs(1, L, 112, 64, 1, 64, seed=L + 64))
+    y64, h64 = scan_float64(x, dt, A, Bm, Cm)
+    y, h = port.reference(x, dt, A, Bm, Cm, chunk=128)
+    for out, ref in ((y, y64), (h, h64)):
+        bound = (2e-4 + 1e-5 * float(ref.abs().max())) / 2
+        assert float((out.double() - ref).abs().max()) <= bound
+
+
+def test_segment_sums_are_running_sums_down_each_column():
+    a = torch.tensor([[[-1.0], [-2.0], [-4.0], [-8.0]]])      # (1, 4, 1)
+    seg = port.segment_sums(a)[0, :, :, 0]
+    want = torch.tensor([[0.0, 0.0, 0.0, 0.0],
+                         [-2.0, 0.0, 0.0, 0.0],
+                         [-6.0, -4.0, 0.0, 0.0],
+                         [-14.0, -12.0, -8.0, 0.0]])
+    assert torch.equal(seg, want)
+
+
+#: the tensor-core kernel's bf16 checks on the card: y within 2e-2 plus one
+#: bf16 rounding step of each value, h within 2e-2, both against the plain
+#: version in float32 on the same bf16 inputs (tests/test_torch_cuda.py)
+PATH_WIDTH_SCAN = [(1, L, 112, 64, 1, 64, 128) for L in (285, 129)]
+
+
+def _tc_excess(shape, split):
+    B, L, H, P, G, N, chunk = shape
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           scan_inputs(B, L, H, P, G, N, seed=L + P))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    y_ref, h_ref = port.reference(x.float(), dt, A, Bm.float(), Cm.float(),
+                                  chunk=chunk)
+    y, h = scan_tc_emulation(x, dt, A, Bm, Cm, chunk=chunk, split=split)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    ey = (y.float() - y_ref).abs() - (2e-2 + 2.0 ** -7 * y_ref.abs())
+    eh = (h - h_ref).abs() - 2e-2
+    return float(ey.max()), float(eh.max())
+
+
+@pytest.mark.parametrize("shape", PATH_WIDTH_SCAN, ids=str)
+def test_tensor_core_rounding_holds_the_card_bound(shape):
+    """M, h and w B entering the tensor cores as bf16 pairs hi + lo, the
+    bf16 inputs as they are, fp32 sums: y and h within the card bound at
+    zamba2's widths with a ragged last chunk."""
+    ey, eh = _tc_excess(shape, split=True)
+    assert ey <= 0 and eh <= 0, (ey, eh)
+
+
+def test_single_bf16_rounding_breaks_the_card_bound():
+    """Why the kernel splits every float32 operand: rounded once to bf16,
+    M, h and w B put y and h past the card bound."""
+    ey, eh = _tc_excess(PATH_WIDTH_SCAN[0], split=False)
+    assert ey > 0 and eh > 0, (ey, eh)
 
 
 def test_bfloat16_inputs_give_bfloat16_output_and_float32_state():

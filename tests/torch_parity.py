@@ -127,6 +127,27 @@ SCAN_SHAPES = [
 ]
 
 
+def scan_float64(x, dt, A, Bm, Cm):
+    """The oracle's step-by-step recurrence (``mamba2_scan_ref.reference``)
+    in float64 with torch, on the inputs' device: h_t = exp(dt_t A) h_{t-1}
+    + dt_t x_t B_t^T, y_t = h_t C_t. Returns (y, h_final), float64."""
+    import torch
+    B, L, H, P = x.shape
+    G = Bm.shape[2]
+    x, dt, A = x.double(), dt.double(), A.double()
+    Bh = Bm.double().repeat_interleave(H // G, dim=2)
+    Ch = Cm.double().repeat_interleave(H // G, dim=2)
+    h = torch.zeros(B, H, P, Bm.shape[3], dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        h = (h * torch.exp(dt[:, t] * A)[..., None, None]
+             + dt[:, t, :, None, None] * x[:, t, :, :, None]
+             * Bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 def flash_inputs(B, S, H, KV, hd, seed=0):
     """q (B,S,H,hd), k and v (B,S,KV,hd), standard normal float32."""
     rng = np.random.default_rng(seed)
@@ -177,3 +198,95 @@ def wkv_inputs(B, L, H, N, seed=0, strong=False, path=False):
         w = 0.45 + 0.5 / (1 + np.exp(-rng.standard_normal(shape)))
     u = rng.standard_normal((H, N)).astype(np.float32)
     return r, k, v, w.astype(np.float32), u
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels' rounding, emulated with torch on the CPU. The
+# bf16 inputs enter the tensor cores as they are; every float32 operand
+# enters as a bf16 pair hi + lo (``split=True``, the kernels' design) or as
+# one bf16 value (``split=False``, what the design rules out); products are
+# exact in fp32 and summed in fp32; the output is bf16.
+
+def bf16_operand(t, split=True):
+    """A float32 tensor as the tensor cores see it: hi + lo with hi =
+    bf16(t), lo = bf16(t - hi) (``split``), or bf16(t)."""
+    import torch
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float() if split else hi
+
+
+def flash_tc_emulation(q, k, v, causal=True, window=0, split=True,
+                       block_k=64):
+    """``flash_fwd_tc``'s arithmetic: scores in fp32, an online softmax in
+    base 2 over key tiles of ``block_k`` (masked entries -1e30 and exactly
+    0, the sum from the fp32 probabilities, clamped at 1e-30), P as a bf16
+    operand, O summed in fp32, divided by the sum and rounded to bf16. q
+    (B,S,H,hd), k/v (B,S,KV,hd) bf16 -> (B,S,H,hd) bf16."""
+    import math
+    import torch
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    c = hd ** -0.5 * math.log2(math.e)
+    qf = q.float().reshape(B, S, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(S)
+    m = torch.full((B, KV, H // KV, S, 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, KV, H // KV, S, hd)
+    for k0 in range(0, S, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        keys = pos[k0:k0 + block_k]
+        ok = torch.ones(S, len(keys), dtype=torch.bool)
+        if causal:
+            ok &= keys[None] <= pos[:, None]
+        if window > 0:
+            ok &= keys[None] > pos[:, None] - window
+        s = torch.einsum("bskgh,btkh->bkgst", qf, kt) * c
+        s = s.masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).masked_fill(~ok, 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bkgst,btkh->bkgsh",
+                                     bf16_operand(p, split), vt)
+        m = m_new
+    out = o / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+def scan_tc_emulation(x, dt, A, Bm, Cm, chunk=128, split=True):
+    """``ssd_scan_tc``'s arithmetic, chunk by chunk: C B^T from the bf16
+    inputs; M = (C B^T) exp(seg) dt, the state h and w B (w = dt times the
+    decay to the chunk's end) as bf16 operands; the state carried in fp32;
+    y rounded to bf16. x, B, C bf16, dt and A float32 -> (y bf16, h
+    float32)."""
+    import torch
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    xf = x.float()
+    Bh = Bm.float().repeat_interleave(H // G, dim=2)
+    Ch = Cm.float().repeat_interleave(H // G, dim=2)
+    h = torch.zeros(B, H, P, N)
+    ys = []
+    for c0 in range(0, L, chunk):
+        xc, dtc = xf[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
+        Bc, Cc = Bh[:, c0:c0 + chunk], Ch[:, c0:c0 + chunk]
+        Q = xc.shape[1]
+        a = dtc * A
+        later = torch.tril(torch.ones(Q, Q, dtype=torch.bool), -1)
+        seg = torch.cumsum(a[:, :, None].expand(-1, -1, Q, -1)
+                           .masked_fill(~later[None, :, :, None], 0.0), 1)
+        keep = torch.tril(torch.ones(Q, Q, dtype=torch.bool))[None, :, :,
+                                                              None]
+        M = (torch.einsum("bqhn,bkhn->bqkh", Cc, Bc)
+             * torch.exp(seg.masked_fill(~keep, float("-inf")))
+             * dtc[:, None])
+        y = torch.einsum("bqhn,bhpn->bqhp", Cc, bf16_operand(h, split)) \
+            * torch.exp(a[:, :1] + seg[:, :, 0])[..., None]
+        y = y + torch.einsum("bqkh,bkhp->bqhp", bf16_operand(M, split), xc)
+        w = torch.exp(seg[:, -1]) * dtc
+        wB = bf16_operand(Bc * w[..., None], split)
+        h = h * torch.exp(a[:, :1] + seg[:, -1, :1])[:, 0, :, None, None] \
+            + torch.einsum("bqhn,bqhp->bhpn", wB, xc)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(torch.bfloat16), h

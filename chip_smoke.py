@@ -8,10 +8,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all started together; then one ``[ptxas]`` line per
-   kernel function from the build logs (registers, spills, stack).
+   kernel function from the build logs (registers, spills, stack) and the
+   dynamic shared memory of the tensor-core kernels' blocks.
 3. Kernels vs their plain versions on the card. ``hedm_reduce`` at the test
-   shapes (float32 and uint16) and at (8, 2048, 2048): masks and counts
-   equal (``torch.equal``). ``flash_attention`` at the shapes of
+   shapes (float32 and uint16), ragged shapes (widths 1, 3, 131 and 1027,
+   heights 1, 5 and 67, uint16 with an odd width) and at (8, 2048, 2048):
+   masks and counts equal (``torch.equal``). ``flash_attention`` at the shapes of
    tests/test_kernels.py in float32 and bfloat16, at ragged S (100, 200),
    at the zamba2 prefill shape (1, 2048, 32 heads, 32 kv, hd 112) and a
    danube3-like GQA shape with a window (1, 2048, 32, 8, 120, window
@@ -32,9 +34,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    0.1], where a kernel that split the exponent would give inf) and the
    rwkv6-3b prefill widths (1, L, 40, 64) with a decay like the model's
    (~0.98): float32 and bfloat16 at L = 2048, bfloat16 at every prompt
-   length of the main path. Output in float32 within 2e-4 (test shapes)
-   or 2e-4 + 1e-5 |ref| (path widths), in bfloat16 within 1e-3 + 2^-7
-   |ref|; the float32 state within 2e-4 + 1e-5 |ref| in every case.
+   length of the main path and at the tensor-core kernel's chunk edges
+   (L = 1, 15, 16, 17, 33, 97 at chunks 16, 32 and 64); bfloat16 runs on
+   ``wkv6_tc``, float32 and N = 8 on ``wkv6``. Output in float32 within
+   2e-4 (test shapes) or 2e-4 + 1e-5 |ref| (path widths), in bfloat16
+   within 1e-3 + 2^-7 |ref|; the float32 state within 2e-4 + 1e-5 |ref| in
+   every case.
 4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
    paper's size, 736 frames of 2048x2048 and 100,000 grid points.
 5. Timing of ``hedm_reduce`` at (736, 2048, 2048) float32 (CUDA events,
@@ -60,15 +65,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    steps after it give the card's busy share (kernel time over wall time).
    8b. The same for rwkv6-3b at full width and depth (32 layers, d_model
    2560), once the zamba2 session is freed: the same prompts, ``rwkv6_wkv``
-   launched 8 x 32 times and no other kernel.
+   launched 8 x 32 times, every launch on the tensor-core kernel, and no
+   other kernel.
 9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
    paths' shapes (S = L = 2048, bf16; the decay float32), median of 20
    launches by CUDA events after warm-up (the card kept busy while the
    host enqueues, so host launch time is not counted), beside each one's
    bound, its plain version, for attention
    ``torch.nn.functional.scaled_dot_product_attention`` (the port never
-   calls it), and for attention and the scan the CUDA-core kernel on the
-   same bf16 inputs (the earlier design).
+   calls it), and for each the CUDA-core kernel on the same bf16 inputs
+   (the earlier design). ``rwkv6_wkv`` prints two bounds: its products at
+   the tensor-core rate (as the scan's), its ``bound_ms``, and every
+   operation at the fp32 rate, the earlier design's bound, in the
+   ``[time]`` line only; and the device time of each of its three launches
+   (``torch.profiler``).
 
 Each main path (4, 8 and 8b) runs with every launch count set to 0 just
 before and read just after. The last three lines of standard output are the
@@ -91,12 +101,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
-# fp32 operations per pixel: subtract, clamp, 19 min/max exchanges (38),
-# Laplacian (7 adds, 1 mul, 1 sub), two compares, one and, one count add
-HEDM_OPS_PER_PIXEL = 53
+# fp32 operations per pixel: subtract, clamp, the median from sorted columns
+# at strips of 8 (12 column sorts of 6 and 10 medians of 12 min/max for 8
+# pixels: 24), Laplacian (7 adds, 1 mul, 1 sub), two compares, one and, one
+# count add
+HEDM_OPS_PER_PIXEL = 39
 FRAMES, SIZE = 736, 2048           # the paper's NF-HEDM layer
 GRID_POINTS = 100_000
 CHUNK = 8                          # frames per plain-version call
+
+
+#: hedm_reduce's ragged shapes (F, H, W, frame type): widths 1, 3, 131 and
+#: 1027, heights 1, 5 and 67, and uint16 with an odd width (the strips'
+#: scalar path and the border copies of the median)
+RAGGED_HEDM = [(2, 1, 7, "float32"), (2, 5, 1, "float32"),
+               (1, 1, 1, "float32"), (2, 67, 131, "float32"),
+               (1, 5, 1027, "float32"), (2, 5, 3, "float32"),
+               (2, 67, 131, "uint16"), (1, 5, 1027, "uint16")]
 
 
 def nvidia_smi():
@@ -134,6 +155,11 @@ def kernel_cases(np):
     cases.append(("u16-full-range",
                   rng.integers(0, 65536, (2, 33, 40)).astype(np.uint16),
                   rng.uniform(0, 30000, (33, 40)).astype(np.float32), 5000.0))
+    for F, H, W, dtype in RAGGED_HEDM:
+        f = np.random.default_rng(H * W).integers(0, 400, (F, H, W))
+        cases.append((f"ragged-{H}x{W}-{np.dtype(dtype).name}",
+                      f.astype(dtype), np.full((H, W), 8.0, np.float32),
+                      150.0))
     return cases
 
 
@@ -150,7 +176,9 @@ def ptxas_summary(log):
         if m:
             name = m.group(1)
             for short in ("flash_fwd_tc", "flash_fwd", "ssd_scan_tc",
-                          "ssd_scan", "wkv6", "hedm_reduce_kernel"):
+                          "ssd_scan", "wkv6_tc_decay", "wkv6_tc_walk",
+                          "wkv6_tc_out",
+                          "wkv6", "hedm_reduce_kernel"):
                 if short in name:
                     tmpl = re.search(r"I((?:13__nv_bfloat16|Li\d+E|f|t)+)E",
                                      name)
@@ -223,6 +251,9 @@ WKV_CHECKS = [
     ((1, 97, 3, 16, 32), BOTH, "test"),       # prime L
     ((1, 97, 2, 64, 32), BOTH, "strong"),
     ((1, 2048, 40, 64, 32), BOTH, "path"),    # rwkv6-3b prefill
+    # the tensor-core kernel's chunk edges (16-row tiles, chunks 16-64)
+    *[((1, L, 4, 64, c), ("bfloat16",), "test")
+      for L in (1, 15, 16, 17, 33, 97) for c in (16, 32, 64)],
 ]
 PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
 PATH_SCAN = (1, 2048, 112, 64, 1, 64, 128)
@@ -502,19 +533,21 @@ def profile_serving(torch, sess, prompts):
 
 
 def wkv_ops(B, L, H, N, chunk):
-    """fp32 operations of the WKV at chunk ``chunk``, each exp one: per
-    chunk of qc steps and head, the scores of its qc(qc-1)/2 pairs (a
-    subtraction, an exp, a product and a multiply-add a channel), the bonus
-    (3 a channel a step), their product with v, the carried term and the
-    state update (two (N,N) contractions a step), the state's decay, and
-    log, cumsum and the decay factors of r and k (7 a channel a step)."""
-    ops = 0
+    """Operations of the WKV at chunk ``chunk``, each exp one, as (tensor,
+    fp32): per chunk of qc steps and head, the tensor-core work is the
+    carried term and the state update (two (N,N) contractions a step) and
+    the scores' product with v; the fp32 work is the scores of the qc(qc-1)/2
+    pairs (a subtraction, an exp, a product and a multiply-add a channel),
+    the bonus (3 a channel a step), the state's decay, and log, cumsum and
+    the decay factors of r and k (7 a channel a step)."""
+    tensor = fp32 = 0
     for c0 in range(0, L, chunk):
         qc = min(chunk, L - c0)
         pairs = qc * (qc - 1) // 2
-        ops += B * H * (5 * N * pairs + 2 * N * (pairs + qc) + 3 * N * qc
-                        + 4 * N * N * qc + 2 * N * N + 7 * N * qc)
-    return ops
+        tensor += B * H * (4 * N * N * qc + 2 * N * (pairs + qc))
+        fp32 += B * H * (5 * N * pairs + 3 * N * qc + 2 * N * N
+                         + 7 * N * qc)
+    return tensor, fp32
 
 
 def cuda_core_kernel(torch, mod, *args):
@@ -530,6 +563,26 @@ def cuda_core_kernel(torch, mod, *args):
             raise RuntimeError(f"{mod.__name__} CUDA-core launch: error "
                                f"{err}")
     return launch
+
+
+def kernel_times(torch, fn, prefix, calls=10):
+    """{kernel name: mean device ms a call} of the kernels whose names hold
+    ``prefix`` over ``calls`` calls of ``fn`` (torch.profiler)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(prefix + r"\w*", e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            out[m.group(0)] = e.self_device_time_total / calls / 1e3
+    return out
 
 
 def time_lm_kernels(np, torch, dev):
@@ -559,7 +612,8 @@ def time_lm_kernels(np, torch, dev):
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     out["flash_attention"] = dict(err=err, ms=ms_k, plain_ms=plain,
                                   library_ms=lib, ops=ops, bytes=n_bytes,
-                                  rate=BF16_OPS_PER_S, cuda_core_ms=core_ms)
+                                  ops_ms=ops / BF16_OPS_PER_S * 1e3,
+                                  rate="989 TFLOP/s", cuda_core_ms=core_ms)
     del q, k, v, o
     B, L, H, P, G, N, chunk = PATH_SCAN
     x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
@@ -581,7 +635,8 @@ def time_lm_kernels(np, torch, dev):
                + 4 * (dt.numel() + A.numel() + B * H * P * N))
     out["mamba2_scan"] = dict(err=err, ms=ms_k, plain_ms=plain,
                               library_ms=None, ops=ops, bytes=n_bytes,
-                              rate=BF16_OPS_PER_S, cuda_core_ms=core_ms)
+                              ops_ms=ops / BF16_OPS_PER_S * 1e3,
+                              rate="989 TFLOP/s", cuda_core_ms=core_ms)
     del x, dt, A, Bm, Cm, y, hf
     B, L, H, N, chunk = PATH_WKV
     r, k, v, w, u = wkv_inputs(np, torch, PATH_WKV, "bfloat16", "path", dev,
@@ -591,28 +646,50 @@ def time_lm_kernels(np, torch, dev):
                    reps=20)
     plain = time_ms(torch, lambda: wk.reference(r, k, v, w, u, chunk=chunk),
                     reps=5)
-    # r, k, v and out bf16; w, u and the state float32. The state is fp32
-    # and the contractions read it so: the fp32 rate applies, not the bf16
-    # tensor-core rate
+    passes = kernel_times(torch, lambda: wk.rwkv6_wkv(r, k, v, w, u,
+                                                      chunk=chunk), "wkv6_tc")
+    print("[time] rwkv6_wkv passes (torch.profiler, mean of 10 calls): "
+          + ", ".join(f"{n} {t * 1e3:.1f} us" for n, t in passes.items()),
+          flush=True)
+    o = torch.empty_like(r)
+    sf = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    core = cuda_core_kernel(torch, wk, B, L, H, N, chunk)
+    core_ms = time_ms(torch, lambda: core(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        o.data_ptr(), sf.data_ptr()), reps=20)
+    # r, k, v and out bf16; w, u and the state float32. The products take
+    # their fp32 operands as bf16 pairs, as the scan's do: the tensor-core
+    # rate applies to them, the fp32 rate to the rest. The earlier bound counted
+    # every operation at the fp32 rate; that bound is printed beside the
+    # new one in the [time] line, and the kernels line carries only bound_ms
     n_bytes = (2 * (4 * r.numel()) + 4 * (w.numel() + u.numel()
                                           + B * H * N * N))
-    out["rwkv6_wkv"] = dict(err=err, ms=ms_k, plain_ms=plain,
-                            library_ms=None, ops=wkv_ops(B, L, H, N, chunk),
-                            bytes=n_bytes, rate=FP32_OPS_PER_S)
+    tensor, fp32 = wkv_ops(B, L, H, N, chunk)
+    out["rwkv6_wkv"] = dict(
+        err=err, ms=ms_k, plain_ms=plain, library_ms=None,
+        ops=tensor + fp32, bytes=n_bytes,
+        ops_ms=(tensor / BF16_OPS_PER_S + fp32 / FP32_OPS_PER_S) * 1e3,
+        rate=f"989 TFLOP/s for {tensor / 1e9:.3f} G, 67 for "
+             f"{fp32 / 1e9:.3f} G", cuda_core_ms=core_ms, passes_ms=passes,
+        fp32_rate_bound_ms=max(n_bytes / HBM_BYTES_PER_S,
+                               (tensor + fp32) / FP32_OPS_PER_S) * 1e3)
     for name, r in out.items():
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r["ops"] / r["rate"] * 1e3
+        ops_ms = r["ops_ms"]
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)")
-        core = ("" if "cuda_core_ms" not in r else
-                f"; the CUDA-core kernel on the same inputs "
-                f"{r['cuda_core_ms']:.4f} ms")
+        core = f"; the CUDA-core kernel on the same inputs " \
+               f"{r['cuda_core_ms']:.4f} ms"
+        if "fp32_rate_bound_ms" in r:
+            core += (f"; every operation at 67 TFLOP/s (the earlier bound): "
+                     f"{r['fp32_rate_bound_ms']:.4f} ms = "
+                     f"{r['fp32_rate_bound_ms'] / r['ms'] * 100:.2f}%")
         print(f"[time] {name} bf16 at the path's shape: {r['ms']:.4f} ms "
               f"(median of 20); bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['ops'] / 1e9:.3f} GFLOP = {ops_ms:.4f} "
-              f"ms at {r['rate'] / 1e12:.0f} TFLOP/s, "
+              f"ms at {r['rate']}, "
               f"{r['bytes'] / 1e6:.2f} MB = {bytes_ms:.4f} ms) = "
               f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the bound; plain "
               f"version {r['plain_ms']:.4f} ms; library {lib}; max |diff| "
@@ -638,11 +715,12 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                                          mamba2_scan, rwkv6_wkv)
     from repro_torch.launch import serve as launch_serve
     counted = (hedm_reduce, flash_attention, mamba2_scan, rwkv6_wkv)
+    tensor_core = (flash_attention, mamba2_scan, rwkv6_wkv)
 
     def zero_counts():
         for fn in counted:
             fn.launches = 0
-        for fn in (flash_attention, mamba2_scan):
+        for fn in tensor_core:
             fn.launches_tc = 0
 
     t_start = time.perf_counter()
@@ -669,6 +747,10 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "flash_attention", "flash_attention_tc_smem_bytes",
         [ctypes.c_int])(112), "ssd_scan_tc": _build.bind(
         "mamba2_scan", "mamba2_scan_tc_smem_bytes", [])()}
+    wkv_smem = _build.bind("rwkv6_wkv", "rwkv6_wkv_tc_smem_bytes",
+                           [ctypes.c_int, ctypes.c_int])
+    tc_smem["wkv6_tc_walk, chunk 32"] = wkv_smem(0, 32)
+    tc_smem["wkv6_tc_out, chunk 32"] = wkv_smem(1, 32)
     print("[ptxas] dynamic shared memory a block: " + ", ".join(
         f"{k} {v} bytes" for k, v in tc_smem.items()), flush=True)
 
@@ -798,8 +880,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         served = launch_serve.main(arch=arch, device=dev)
         serve_s = time.perf_counter() - t0
         counts = {fn.__name__: fn.launches for fn in counted}
-        tc = {fn.__name__: fn.launches_tc for fn in (flash_attention,
-                                                     mamba2_scan)}
+        tc = {fn.__name__: fn.launches_tc for fn in tensor_core}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         cfg, ph = served["cfg"], served["phases"]
         n_req = len(served["finished"])
@@ -835,14 +916,24 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     # every K2 and K3 launch of the zamba2 path on the tensor-core kernels
     print(f"[lm] tensor-core launches on the zamba2 path: "
           f"{json.dumps(lm_tc)}", flush=True)
-    for name, n in lm_tc.items():
+    for name in ("flash_attention", "mamba2_scan"):
+        n = lm_tc[name]
         if n != lm_launches[name]:
             raise AssertionError(f"{name}: {n} of {lm_launches[name]} "
                                  f"launches on the tensor-core kernel")
     # 8b. rwkv6-3b serving at full width and depth, the zamba2 session freed
-    lm_launches["rwkv6_wkv"] = serve_main_path("rwkv6-3b", lambda cfg, n: {
+    rw_launches, rw_tc = serve_main_path("rwkv6-3b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": 0, "mamba2_scan": 0,
-        "rwkv6_wkv": n * cfg.n_layers})[0]["rwkv6_wkv"]
+        "rwkv6_wkv": n * cfg.n_layers})
+    lm_launches["rwkv6_wkv"] = rw_launches["rwkv6_wkv"]
+    lm_tc["rwkv6_wkv"] = rw_tc["rwkv6_wkv"]
+    # every K4 launch of the rwkv6 path on the tensor-core kernel
+    print(f"[lm] tensor-core launches on the rwkv6 path: "
+          f"{lm_tc['rwkv6_wkv']} of {lm_launches['rwkv6_wkv']}", flush=True)
+    if lm_tc["rwkv6_wkv"] != lm_launches["rwkv6_wkv"]:
+        raise AssertionError(f"rwkv6_wkv: {lm_tc['rwkv6_wkv']} of "
+                             f"{lm_launches['rwkv6_wkv']} launches on the "
+                             f"tensor-core kernel")
 
     # 9. the LM kernels at the path's shapes
     timed = time_lm_kernels(np, torch, dev)
@@ -865,8 +956,8 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": lm_launches[name],
-            **({"launches_tc": lm_tc[name],
-                "cuda_core_ms": r["cuda_core_ms"]} if name in lm_tc else {}),
+            "launches_tc": lm_tc[name], "cuda_core_ms": r["cuda_core_ms"],
+            **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {}),
             "max_abs_err": max(errs[name], r["err"]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -13,14 +13,14 @@ see `repro_torch.kernels._build`) or raises; on a CPU tensor it runs
 :func:`reference`. ``hedm_reduce.launches`` counts kernel launches.
 
 The TPU kernel's knobs are gone: ``tile_rows`` and ``vmem_budget_bytes``
-sized row tiles to the TPU's VMEM, and a GPU block's 32x32 tile with its
-halo in shared memory is fixed by the card, not by the frame; ``interpret``
-chose Pallas' interpreter off-TPU, and the CPU path here is
+sized row tiles to the TPU's VMEM, and a GPU thread's strip of 8 columns
+walking a band of 128 rows is fixed by the card, not by the frame;
+``interpret`` chose Pallas' interpreter off-TPU, and the CPU path here is
 :func:`reference` itself.
 
 The source note in ``csrc/hedm_reduce.cu`` says what bounds the kernel
 (HBM bytes: ~4.6 ms at (736, 2048, 2048) float32 on an H100 SXM) and what
-its tiling does about it.
+its design does about it.
 """
 from __future__ import annotations
 

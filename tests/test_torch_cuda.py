@@ -90,6 +90,30 @@ def test_kernel_matches_plain_version(card, case):
     assert torch.equal(m.cpu(), cpu_m) and torch.equal(c.cpu(), cpu_c)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint16], ids=str)
+@pytest.mark.parametrize("offset", ["frames", "dark"])
+def test_kernel_on_views_off_a_16_byte_boundary(card, dtype, offset):
+    # contiguous views one element into their storage, at a width the
+    # kernel otherwise reads with 16-byte loads: they take its scalar path
+    F, H, W = 2, 40, 1024
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 400, (F, H, W)).astype(np.float32)
+    dark = rng.integers(0, 40, (H, W)).astype(np.float32)
+    f = torch.from_numpy(frames).to(card, dtype)
+    d = torch.from_numpy(dark).to(card)
+    if offset == "frames":
+        f = torch.cat([f.new_zeros(1), f.flatten()])[1:].view(F, H, W)
+    else:
+        d = torch.cat([d.new_zeros(1), d.flatten()])[1:].view(H, W)
+    assert f.is_contiguous() and d.is_contiguous()
+    assert (f.data_ptr() | d.data_ptr()) % 16 != 0
+    m, c = hedm_reduce(f, d, 150.0)
+    torch.cuda.synchronize()
+    m_ref, c_ref = port.reference(f, d, 150.0)
+    assert int(c_ref.sum()) > 0
+    assert torch.equal(m, m_ref) and torch.equal(c, c_ref)
+
+
 def test_kernel_rejects_non_contiguous_input(card):
     f = torch.zeros(2, 16, 32, device=card)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -299,6 +323,68 @@ def test_rwkv6_wkv_kernel_matches_plain_version(card, shape, dtype, decay):
     assert bool(torch.isfinite(out).all() and torch.isfinite(s).all())
     assert_close(out, o_ref, atol, rtol)
     assert_close(s, s_ref, 2e-4, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,N,tc", [
+    ("bfloat16", 64, True), ("bfloat16", 16, True), ("bfloat16", 8, False),
+    ("float32", 64, False)])
+def test_rwkv6_wkv_dispatch(card, dtype, N, tc):
+    """bf16 with N a multiple of 16 goes to the tensor-core kernel
+    (``wkv6_tc``); float32 and N = 8 to the CUDA-core one (``wkv6``). Both
+    count in ``launches``, the first also in ``launches_tc``."""
+    r, k, v, w, u = (torch.from_numpy(a).to(card)
+                     for a in wkv_inputs(1, 70, 3, N, seed=N))
+    low = getattr(torch, dtype)
+    r, k, v = r.to(low), k.to(low), v.to(low)
+    n, n_tc = wk.rwkv6_wkv.launches, wk.rwkv6_wkv.launches_tc
+    assert wk.on_tensor_cores(r, k, v, w) == tc
+    rwkv6_wkv(r, k, v, w, u, chunk=32)
+    torch.cuda.synchronize()
+    assert wk.rwkv6_wkv.launches == n + 1
+    assert wk.rwkv6_wkv.launches_tc == n_tc + tc
+
+
+#: the tensor-core kernel's chunk edges: 16-row tiles, chunks of 16, 32 and
+#: 64, sequences shorter than, equal to and one past a tile or a chunk
+EDGE_WKV = [(L, chunk) for L in (1, 15, 16, 17, 33, 97)
+            for chunk in (16, 32, 64)]
+
+
+@pytest.mark.parametrize("L,chunk", EDGE_WKV, ids=str)
+def test_rwkv6_wkv_tile_edges_bf16(card, L, chunk):
+    """bf16 on the tensor-core kernel at N = 64 against the plain version
+    run in float32 on the same inputs: out within 1e-3 + 2^-7 |ref|, the
+    state within 2e-4 + 1e-5 |ref|."""
+    r, k, v, w, u = (torch.from_numpy(a).to(card)
+                     for a in wkv_inputs(1, L, 4, 64, seed=L + chunk))
+    r, k, v = (t.to(torch.bfloat16) for t in (r, k, v))
+    before = wk.rwkv6_wkv.launches_tc
+    out, s = rwkv6_wkv(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.rwkv6_wkv.launches_tc == before + 1
+    o_ref, s_ref = wk.reference(r.float(), k.float(), v.float(), w, u,
+                                chunk=chunk)
+    assert_close(out, o_ref, 1e-3, 2.0 ** -7)
+    assert_close(s, s_ref, 2e-4, 1e-5)
+
+
+def test_rwkv6_wkv_batch_of_two(card):
+    """Two batch rows of three heads with a ragged last chunk, bf16 on the
+    tensor-core kernel: within the card bounds of the plain version, and
+    each batch row equal bit for bit to that row run alone, so the scratch
+    offsets by (batch row, head, chunk) address no other row's state."""
+    r, k, v, w, u = (torch.from_numpy(a).to(card)
+                     for a in wkv_inputs(2, 200, 3, 32, seed=11, path=True))
+    r, k, v = (t.to(torch.bfloat16) for t in (r, k, v))
+    out, s = rwkv6_wkv(r, k, v, w, u, chunk=32)
+    o_ref, s_ref = wk.reference(r.float(), k.float(), v.float(), w, u,
+                                chunk=32)
+    assert_close(out, o_ref, 1e-3, 2.0 ** -7)
+    assert_close(s, s_ref, 2e-4, 1e-5)
+    for b in range(2):
+        o_b, s_b = rwkv6_wkv(*(t[b:b + 1].contiguous()
+                               for t in (r, k, v, w)), u, chunk=32)
+        assert torch.equal(o_b[0], out[b]) and torch.equal(s_b[0], s[b])
 
 
 def test_chunked_wkv_from_a_state_raises_on_the_card(card):

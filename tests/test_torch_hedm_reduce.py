@@ -98,3 +98,65 @@ def test_build_targets_sm90a_without_fma_contraction():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("hedm_reduce-") and path.suffix == ".so"
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+
+
+def sorted_column_median(img: torch.Tensor) -> torch.Tensor:
+    """The kernel's 3x3 median of (F, H, W) with edge replication: each
+    3-row column sorted once, then med3(max of the lows, med3 of the mids,
+    min of the highs) over three adjacent columns, all by min and max."""
+    p = torch.nn.functional.pad(img[:, None], (1, 1, 1, 1),
+                                mode="replicate")[:, 0]
+    H, W = img.shape[1:]
+    a, b, c = p[:, 0:H], p[:, 1:H + 1], p[:, 2:H + 2]
+    lo = torch.minimum(torch.minimum(a, b), c)
+    hi = torch.maximum(torch.maximum(a, b), c)
+    mi = torch.minimum(torch.maximum(a, b),
+                       torch.maximum(torch.minimum(a, b), c))
+
+    def med3(x, y, z):
+        return torch.maximum(torch.minimum(x, y),
+                             torch.minimum(torch.maximum(x, y), z))
+
+    cols = [slice(d, d + W) for d in range(3)]
+    return med3(
+        torch.maximum(torch.maximum(lo[..., cols[0]], lo[..., cols[1]]),
+                      lo[..., cols[2]]),
+        med3(mi[..., cols[0]], mi[..., cols[1]], mi[..., cols[2]]),
+        torch.minimum(torch.minimum(hi[..., cols[0]], hi[..., cols[1]]),
+                      hi[..., cols[2]]))
+
+
+def _median_inputs(case):
+    rng = np.random.default_rng(len(case))
+    if case == "u16-small-range":          # heavy ties
+        return rng.integers(0, 4, (3, 37, 41)).astype(np.uint16)
+    if case == "u16-full-range":
+        return rng.integers(0, 65536, (2, 33, 40)).astype(np.uint16)
+    if case == "constant-regions":
+        f = np.full((2, 40, 48), 7.0, np.float32)
+        f[:, 10:20, 5:30] = 3.0
+        f[1, 25:, 20:] = 9.0
+        f[0, ::7, ::5] = rng.integers(0, 12, f[0, ::7, ::5].shape)
+        return f
+    if case == "signed-zeros":             # -0.0 and +0.0 mixed with ties
+        f = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32),
+                       (3, 29, 31))
+        return f.astype(np.float32)
+    if case == "ragged":
+        return rng.standard_normal((2, 5, 3)).astype(np.float32)
+    return rng.standard_normal((2, 45, 50)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["u16-small-range", "u16-full-range",
+                                  "constant-regions", "signed-zeros",
+                                  "ragged", "normal"])
+def test_sorted_column_median_is_the_median(case):
+    """The identity the kernel's median rests on: the median of 9 is an
+    order statistic, and med3(max of the lows, med3 of the mids, min of the
+    highs) of three sorted columns selects it, ties and signed zeros
+    included (held by value: -0.0 == +0.0, the only freedom, which no
+    compare of the mask can see)."""
+    img = torch.from_numpy(_median_inputs(case)).to(torch.float32)
+    want = torch.median(port._neighborhood(img), dim=0).values
+    got = sorted_column_median(img)
+    assert bool((got == want).all())

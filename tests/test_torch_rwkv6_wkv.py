@@ -8,8 +8,10 @@ Pallas wrapper shrinks its chunk to a divisor of L (1 for a prime L); the
 port takes a ragged last chunk, held to the recurrence alone, as is a
 strong decay (w in [1e-4, 0.1]). The port's copies of the model's two WKV
 forms (``wkv_naive``, ``wkv_chunked``) are held to the reference model's,
-from a non-zero state. The CUDA kernel runs only on a card
-(``tests/test_torch_cuda.py``).
+from a non-zero state. The CUDA kernels run only on a card
+(``tests/test_torch_cuda.py``); here the tensor-core kernel's rounding is
+emulated (``torch_parity.wkv_tc_emulation``) and held to the card bounds,
+and its dispatch rule and scratch size are checked.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from repro.models import rwkv6 as jax_rw
 from repro_torch.kernels import rwkv6_wkv as port
 from repro_torch.kernels.ops import rwkv6_wkv
 from repro_torch.models import rwkv6 as port_rw
-from torch_parity import WKV_SHAPES, wkv_inputs
+from torch_parity import WKV_SHAPES, wkv_inputs, wkv_tc_emulation
 
 jax_reference = jax.jit(jax_reference)
 pallas_wkv = jax.jit(pallas_kernel, static_argnames=("chunk", "interpret"))
@@ -145,3 +147,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, error):
         kw["chunk"] = 65
     with pytest.raises(error):
         rwkv6_wkv(r, k, v, w, u, **kw)
+
+
+#: the card bounds of the bf16 kernel against the plain version run in
+#: float32 on the same inputs (tests/test_torch_cuda.py, chip_smoke.py):
+#: out within 1e-3 + 2^-7 |ref|, the float32 state within 2e-4 + 1e-5 |ref|
+TC_CASES = [((1, 285, 40, 64, 32), "path"), ((1, 1781, 40, 64, 32), "path"),
+            ((1, 97, 2, 16, 32), "strong"), ((1, 97, 2, 64, 32), "strong")]
+
+
+def _tc_excess(shape, decay, split):
+    """The worst excess over the card bounds of the emulated tensor-core
+    kernel, (out, state); <= 0 is within them."""
+    B, L, H, N, chunk = shape
+    r, k, v, w, u = map(torch.from_numpy, wkv_inputs(
+        B, L, H, N, seed=L + N, strong=decay == "strong",
+        path=decay == "path"))
+    r, k, v = (t.to(torch.bfloat16) for t in (r, k, v))
+    o_ref, s_ref = port.reference(r.float(), k.float(), v.float(), w, u,
+                                  chunk=chunk)
+    out, s = wkv_tc_emulation(r, k, v, w, u, chunk=chunk, split=split)
+    assert out.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(s).all()
+    eo = (out.float() - o_ref).abs() - (1e-3 + 2.0 ** -7 * o_ref.abs())
+    es = (s - s_ref).abs() - (2e-4 + 1e-5 * s_ref.abs())
+    return float(eo.max()), float(es.max())
+
+
+@pytest.mark.parametrize("shape,decay", TC_CASES, ids=str)
+def test_tensor_core_rounding_holds_the_card_bound(shape, decay):
+    """The scores, r exp(lprev), the state at each chunk's start and k
+    exp(lcum_last - lcum) entering the tensor cores as bf16 pairs hi + lo,
+    r, k, v as they are, fp32 sums: out and state within the card bounds
+    at rwkv6-3b's widths and under a strong decay at N = 16 and 64."""
+    eo, es = _tc_excess(shape, decay, split=True)
+    assert eo <= 0 and es <= 0, (eo, es)
+
+
+def test_single_bf16_rounding_breaks_the_card_bound():
+    """Why the kernel splits every float32 operand: rounded once to bf16,
+    they put out and the state past the card bounds at L = 1781."""
+    eo, es = _tc_excess(TC_CASES[1][0], "path", split=False)
+    assert eo > 0 and es > 0, (eo, es)
+
+
+@pytest.mark.parametrize("dtype,N,chunk,tc", [
+    (torch.bfloat16, 64, 32, True), (torch.bfloat16, 16, 64, True),
+    (torch.bfloat16, 48, 16, True), (torch.bfloat16, 8, 32, False),
+    (torch.bfloat16, 24, 32, False), (torch.bfloat16, 64, 65, False),
+    (torch.float32, 64, 32, False)])
+def test_dispatch_rule(dtype, N, chunk, tc):
+    """bf16 with N a multiple of 16 (at most 64) and chunk <= 64 goes to the
+    tensor-core kernel; float32 and other N to the CUDA-core one. On CPU
+    tensors the wrapper runs the plain version whatever the rule says."""
+    r, k, v, w, u = map(torch.from_numpy, wkv_inputs(1, 8, 2, N))
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    assert port.on_tensor_cores(r, k, v, w, chunk) == tc
+    n, n_tc = port.rwkv6_wkv.launches, port.rwkv6_wkv.launches_tc
+    rwkv6_wkv(r, k, v, w, u, chunk=min(chunk, port.MAX_CHUNK))
+    assert (port.rwkv6_wkv.launches, port.rwkv6_wkv.launches_tc) == (n, n_tc)
+
+
+@pytest.mark.parametrize("B,L,H,N,chunk,n_bytes", [
+    (1, 2048, 40, 64, 32, 63_569_920), (1, 1781, 40, 64, 32, 55_623_680),
+    (2, 97, 3, 16, 64, 62_208), (1, 1, 1, 16, 32, 2112)])
+def test_scratch_size(B, L, H, N, chunk, n_bytes):
+    """For each of the ceil(L / chunk) chunks of every (batch row, head):
+    the float32 state (N, N) at its start and its decay (N,), and k exp(
+    lcum_last - lcum) as two bf16 (QP, N) tiles, QP the chunk padded to 16,
+    32 or 64 (a chunk longer than L is cut to L)."""
+    assert port.scratch_bytes(B, L, H, N, chunk) == n_bytes

@@ -79,9 +79,22 @@ def _full_range_u16():
     return frames, dark, 5000.0, 16
 
 
+def _ragged(F, H, W, dtype):
+    frames = np.random.default_rng(H * W).integers(0, 400, (F, H, W))
+    return frames.astype(dtype), np.full((H, W), 8.0, np.float32), 150.0, None
+
+
+#: hedm_reduce's ragged shapes ``(F, H, W, frame type)``: widths 1, 3, 131
+#: and 1027, heights 1, 5 and 67, and uint16 with an odd width; the same as
+#: chip_smoke.py's RAGGED_HEDM
+RAGGED_HEDM = [(2, 1, 7, "float32"), (2, 5, 1, "float32"),
+               (1, 1, 1, "float32"), (2, 67, 131, "float32"),
+               (1, 5, 1027, "float32"), (2, 5, 3, "float32"),
+               (2, 67, 131, "uint16"), (1, 5, 1027, "uint16")]
+
 #: hedm_reduce inputs: the cases of tests/test_kernels.py (spot, row-tiled
-#: shapes, the noisy-border sweep, pure noise) and uint16 frames, as
-#: ``name -> () -> (frames, dark, threshold, Pallas tile_rows)``.
+#: shapes, the noisy-border sweep, pure noise), uint16 frames and the ragged
+#: shapes, as ``name -> () -> (frames, dark, threshold, Pallas tile_rows)``.
 HEDM_REDUCE_CASES = {
     "spot": lambda: spot_case(np.float32),
     "tiled-64x64": lambda: _tiled(64, 64, 16, np.float32),
@@ -97,6 +110,9 @@ HEDM_REDUCE_CASES = {
     "u16-noisy-21x24": lambda: _noisy(0, 21, 24, 4, np.uint16),
     "u16-pure-noise": lambda: pure_noise_case(np.uint16),
     "u16-full-range": _full_range_u16,
+    **{f"ragged-{H}x{W}-{dt}": (lambda F=F, H=H, W=W, dt=dt:
+                                _ragged(F, H, W, dt))
+       for F, H, W, dt in RAGGED_HEDM},
 }
 
 
@@ -290,3 +306,39 @@ def scan_tc_emulation(x, dt, A, Bm, Cm, chunk=128, split=True):
             + torch.einsum("bqhn,bqhp->bhpn", wB, xc)
         ys.append(y)
     return torch.cat(ys, dim=1).to(torch.bfloat16), h
+
+
+def wkv_tc_emulation(r, k, v, w, u, chunk=32, split=True):
+    """``wkv6_tc``'s arithmetic, chunk by chunk: the state pass's U =
+    (k exp(lcum_last - lcum))^T v with that float32 factor as a bf16
+    operand and v as it is, the state carried in fp32; the output pass's
+    scores in fp32 (exact exps, every exponent <= 0, as the plain version),
+    then sc v and (r exp(lprev)) S with sc, r exp(lprev) and the state at
+    the chunk's start as bf16 operands; the output rounded to bf16. r, k, v
+    bf16, w and u float32 -> (out bf16, s float32)."""
+    import torch
+    B, L, H, N = r.shape
+    rf, kf, vf = r.float(), k.float(), v.float()
+    lw_all = torch.log(torch.clamp(w.float(), min=1e-20))
+    s = torch.zeros(B, H, N, N)
+    outs = []
+    for c0 in range(0, L, chunk):
+        rc, kc, vc = (t[:, c0:c0 + chunk] for t in (rf, kf, vf))
+        Q = rc.shape[1]
+        lcum = torch.cumsum(lw_all[:, c0:c0 + chunk], dim=1)
+        lprev = torch.cat([torch.zeros_like(lcum[:, :1]), lcum[:, :-1]], 1)
+        before = torch.tril(torch.ones(Q, Q, dtype=torch.bool), -1)
+        diff = (lprev[:, :, None] - lcum[:, None, :]).masked_fill(
+            ~before[None, :, :, None, None], float("-inf"))
+        sc = torch.einsum("bqhi,bqjhi,bjhi->bqjh", rc, torch.exp(diff), kc)
+        sc = sc + torch.diag_embed(torch.einsum(
+            "bqhi,hi,bqhi->bhq", rc, u, kc)).permute(0, 2, 3, 1)
+        o = torch.einsum("bqjh,bjhn->bqhn", bf16_operand(sc, split), vc)
+        o = o + torch.einsum("bqhi,bhin->bqhn",
+                             bf16_operand(rc * torch.exp(lprev), split),
+                             bf16_operand(s, split))
+        kd = bf16_operand(kc * torch.exp(lcum[:, -1:] - lcum), split)
+        s = s * torch.exp(lcum[:, -1])[..., None] \
+            + torch.einsum("bqhi,bqhn->bhin", kd, vc)
+        outs.append(o)
+    return torch.cat(outs, dim=1).to(torch.bfloat16), s

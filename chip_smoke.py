@@ -39,21 +39,37 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``wkv6_tc``, float32 and N = 8 on ``wkv6``. Output in float32 within
    2e-4 (test shapes) or 2e-4 + 1e-5 |ref| (path widths), in bfloat16
    within 1e-3 + 2^-7 |ref|; the float32 state within 2e-4 + 1e-5 |ref| in
-   every case.
+   every case. ``flash_attention`` also at qwen3-moe-30b-a3b's prefill
+   widths, (1, S, 32 heads, 4 kv heads, hd 128) bf16 causal, at each of the
+   eight prompt lengths and at S = 2048, each call on ``flash_fwd_tc``.
 4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
    paper's size, 736 frames of 2048x2048 and 100,000 grid points.
+   4b. The streamed and multi-session drivers at 2048x2048:
+   ``repro_torch.hedm.streaming.main`` over 64 frames (1.07 GB of float32,
+   reduce windows of 8, a node cache of 16), the streamed output equal to
+   the batch output bit for bit; ``repro_torch.hedm.service.main`` over 3
+   scans of 16 frames under a budget of 2 scans, every session's output
+   equal to direct reduction byte for byte. Each driver's ``hedm_reduce``
+   launches are counted from 0 and must be one per reduce window and one
+   per batch or direct reduction; its simulated turnaround, wall seconds
+   and device time (``torch.profiler``) are printed.
 5. Timing of ``hedm_reduce`` at (736, 2048, 2048) float32 (CUDA events,
    median of 20 launches after warm-up) beside its HBM bound and its plain
-   version, which is first held equal to the kernel on all 736 frames.
+   version, which is first held equal to the kernel on all 736 frames;
+   from that one time, the port's ``nf_reduction`` row
+   (benchmarks/paper_figures.py:91-108): microseconds a frame and the
+   736-frame time beside the paper's 106 s on 320 cores.
 6. Serving on the card against the CPU at smoke size: zamba2-7b,
-   h2o-danube3-4b and rwkv6-3b smoke configs in float32, the same
-   seed-made weights on both devices; prefill logits and one decode step
-   within 1e-4 relative, and a 4-request ``ServeSession`` with identical
-   token ids.
-7. Prefill + decode == forward at full width, float32 on the card, S=1024:
+   h2o-danube3-4b, rwkv6-3b and qwen3-moe-30b-a3b smoke configs in
+   float32, the same seed-made weights on both devices; prefill logits and
+   one decode step within 1e-4 relative, and a 4-request ``ServeSession``
+   with identical token ids.
+7. Prefill + decode == forward (``inference=True``, the MoE capacity of
+   prefill and decode) at full width, float32 on the card, S=1024:
    zamba2-7b at d_model 3584 with 12 layers (2 shared-attention sites),
-   rwkv6-3b at d_model 2560 (40 heads of 64) with 4 layers; relative error
-   < 5e-3 (tests/test_serve.py's bound).
+   rwkv6-3b at d_model 2560 (40 heads of 64) with 4 layers, qwen3-moe at
+   d_model 2048 (128 experts of 768, 32/4 heads of 128) with 4 layers
+   (~14 GB); relative error < 5e-3 (tests/test_serve.py's bound).
 8. The LM main path: ``repro_torch.launch.serve.main``, zamba2-7b at full
    width and depth (81 layers), bf16, random weights from seed 0; 8
    requests with prompts of 256..2048 tokens (numpy seed 0), 32 new tokens
@@ -67,21 +83,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    2560), once the zamba2 session is freed: the same prompts, ``rwkv6_wkv``
    launched 8 x 32 times, every launch on the tensor-core kernel, and no
    other kernel.
+   8c. The same for qwen3-moe-30b-a3b at full width and depth (48 layers,
+   128 experts of 768, top 8; 30.5 B parameters in bf16), once the rwkv6
+   session is freed: ``flash_attention`` launched 8 x 48 times, every
+   launch on ``flash_fwd_tc``, and no other kernel; peak device memory.
 9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
-   paths' shapes (S = L = 2048, bf16; the decay float32), median of 20
+   paths' shapes (S = L = 2048, bf16; the decay float32; attention at
+   zamba2's (32, 32, 112) and qwen3-moe's (32, 4, 128)), median of 20
    launches by CUDA events after warm-up (the card kept busy while the
    host enqueues, so host launch time is not counted), beside each one's
    bound, its plain version, for attention
-   ``torch.nn.functional.scaled_dot_product_attention`` (the port never
-   calls it), and for each the CUDA-core kernel on the same bf16 inputs
+   ``torch.nn.functional.scaled_dot_product_attention`` (with
+   ``enable_gqa=True`` at qwen3-moe's shape; the port never calls it),
+   and for each the CUDA-core kernel on the same bf16 inputs
    (the earlier design). ``rwkv6_wkv`` prints two bounds: its products at
    the tensor-core rate (as the scan's), its ``bound_ms``, and every
    operation at the fp32 rate, the earlier design's bound, in the
    ``[time]`` line only; and the device time of each of its three launches
    (``torch.profiler``).
 
-Each main path (4, 8 and 8b) runs with every launch count set to 0 just
-before and read just after. The last three lines of standard output are the
+Each main path (4, 4b, 8, 8b and 8c) runs with every launch count set to 0
+just before and read just after. The last three lines of standard output are the
 card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -256,6 +278,7 @@ WKV_CHECKS = [
       for L in (1, 15, 16, 17, 33, 97) for c in (16, 32, 64)],
 ]
 PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
+QWEN_FLASH = (1, 2048, 32, 4, 128, True, 0)      # qwen3-moe-30b-a3b prefill
 PATH_SCAN = (1, 2048, 112, 64, 1, 64, 128)
 PATH_WKV = (1, 2048, 40, 64, 32)
 FLASH_ATOL = {"float32": 3e-5, "bfloat16": 1e-3}
@@ -266,12 +289,16 @@ STATE_RTOL = 1e-5              # of |ref|: float32 at the path's widths
 
 
 def path_checks(lengths):
-    """The LM main paths' kernel shapes at each of their prompt lengths."""
+    """The LM main paths' kernel shapes at each of their prompt lengths;
+    qwen3-moe's attention also at S = 2048."""
     *fw, causal, win = PATH_FLASH
+    *qw, _, _ = QWEN_FLASH
     B, _, H, P, G, N, chunk = PATH_SCAN
     Bw, _, Hw, Nw, cw = PATH_WKV
     return ([((fw[0], n, *fw[2:], causal, win), ("bfloat16",))
              for n in lengths],
+            [(qw[0], n, *qw[2:], causal, win)
+             for n in list(lengths) + [QWEN_FLASH[1]]],
             [((B, n, H, P, G, N, chunk), ("bfloat16",)) for n in lengths],
             [((Bw, n, Hw, Nw, cw), ("bfloat16",), "path") for n in lengths])
 
@@ -337,11 +364,16 @@ def wkv_err(torch, wk, r, k, v, w, u, chunk, path):
     return err
 
 
-def flash_err(torch, fa, q, k, v, causal, window):
+def flash_err(torch, fa, q, k, v, causal, window, tc=False):
     """max |kernel - plain| with the plain version in fp32 on the same
     inputs; raises past the tolerance of q's type (bf16 also gets one
-    rounding step of each output value)."""
+    rounding step of each output value), and with ``tc`` unless the call
+    took the tensor-core kernel ``flash_fwd_tc``."""
+    before = fa.flash_attention.launches_tc
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    if tc and fa.flash_attention.launches_tc != before + 1:
+        raise AssertionError(f"flash_attention at {tuple(q.shape)} kv "
+                             f"{k.shape[2]} did not take flash_fwd_tc")
     ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
                        window=window)
     torch.cuda.synchronize()
@@ -388,7 +420,7 @@ def check_lm_kernels(np, torch, dev, lengths):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_scan as ms
     from repro_torch.kernels import rwkv6_wkv as wk
-    flash_path, scan_path, wkv_path = path_checks(lengths)
+    flash_path, qwen_path, scan_path, wkv_path = path_checks(lengths)
     errs = {"flash_attention": 0.0, "mamba2_scan": 0.0, "rwkv6_wkv": 0.0}
     n = 0
     for (*shape, causal, win), dtypes in FLASH_CHECKS + flash_path:
@@ -399,6 +431,15 @@ def check_lm_kernels(np, torch, dev, lengths):
             n += 1
     print(f"[check] flash_attention == plain version on {n} inputs "
           f"(max |diff| {errs['flash_attention']:.3g})", flush=True)
+    qerr = 0.0
+    for n, (*shape, causal, win) in enumerate(qwen_path):
+        q, k, v = flash_inputs(np, torch, shape, "bfloat16", dev, seed=500 + n)
+        qerr = max(qerr, flash_err(torch, fa, q, k, v, causal, win, tc=True))
+    errs["flash_attention"] = max(errs["flash_attention"], qerr)
+    print(f"[check] flash_attention at qwen3-moe's widths (1, S, 32, 4, 128) "
+          f"bf16 causal, S = {', '.join(str(s[1]) for s in qwen_path)}: "
+          f"each on flash_fwd_tc, == plain version within 1e-3 + 2^-7 |ref| "
+          f"(max |diff| {qerr:.3g})", flush=True)
     n = 0
     for shape, dtypes in SCAN_CHECKS + scan_path:
         for name in dtypes:
@@ -421,6 +462,73 @@ def check_lm_kernels(np, torch, dev, lengths):
     return errs
 
 
+def device_time(torch, fn):
+    """``fn()``'s result and, from ``torch.profiler``, the device seconds
+    of all its CUDA activity and of its ``hedm_reduce`` kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return out, (sum(e.self_device_time_total for e in ev) / 1e6,
+                 sum(e.self_device_time_total for e in ev
+                     if "hedm_reduce" in e.key) / 1e6)
+
+
+def check_hedm_drivers(torch, dev, hr, zero_counts):
+    """Phase 4b: the streamed and the multi-session drivers at 2048x2048,
+    each with its launch counts set to 0 just before and read just after.
+    Returns {driver: hedm_reduce launches}."""
+    from repro_torch.hedm import service, streaming
+    runs = {
+        "streaming": (lambda: streaming.main(
+            device=dev, n_frames=64, frame_size=SIZE, verbose=False),
+            1 + -(-64 // 8)),                # the batch pass, 8 windows
+        "service": (lambda: service.main(
+            device=dev, n_frames=16, frame_size=SIZE, verbose=False),
+            4 * 3 + 3)}                      # 4 sessions x 3 scans, direct
+    launches = {}
+    for name, (run, want) in runs.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        out, (busy_s, kernel_s) = device_time(torch, run)
+        wall = time.perf_counter() - t0
+        launches[name] = hr.hedm_reduce.launches
+        if launches[name] != want:
+            raise AssertionError(f"the {name} driver launched hedm_reduce "
+                                 f"{launches[name]} times, expected {want}")
+        phases = json.dumps({k: round(v, 4) for k, v in out["wall"].items()})
+        card = (f"card: {busy_s:.4f}s of device activity, hedm_reduce "
+                f"{kernel_s * 1e3:.3f} ms (torch.profiler)")
+        if name == "streaming":
+            st = out["stream"]
+            print(f"[hedm-drivers] streaming, 64 frames of {SIZE}x{SIZE} "
+                  f"(1.07 GB float32), window 8, cache 16: online == batch "
+                  f"bit for bit; hedm_reduce launches {launches[name]} (1 "
+                  f"batch + 8 windows); simulated turnaround batch "
+                  f"{out['batch_turnaround_s']:.4f}s, online "
+                  f"{out['online_turnaround_s']:.4f}s (first results at "
+                  f"{out['first_result_s']:.4f}s); stream peak resident "
+                  f"{st.peak_resident_bytes / 1e6:.1f} MB, {st.evictions} "
+                  f"evictions, stall {st.stall_time:.4f}s; wall "
+                  f"{wall:.2f}s {phases}; {card}", flush=True)
+        else:
+            st = out["stats"]
+            print(f"[hedm-drivers] service, 3 scans of 16 frames of "
+                  f"{SIZE}x{SIZE}, budget 2 scans, 4 sessions + 1 late: "
+                  f"{out['n_outputs']} outputs == direct reduction byte for "
+                  f"byte; hedm_reduce launches {launches[name]} (12 session "
+                  f"+ 3 direct); {st.stages} stages ({st.restages} "
+                  f"re-stages), {st.evictions} evictions; simulated "
+                  f"turnaround {out['turnaround_s']:.4f}s, late lease "
+                  f"{'hit' if out['late']['hit'] else 're-stage'}; wall "
+                  f"{wall:.2f}s {phases}; {card}", flush=True)
+        del out
+        gc.collect()
+    return launches
+
+
 def rel_err(a, ref):
     return float((a - ref).abs().max() / (ref.abs().max() + 1e-30))
 
@@ -431,7 +539,8 @@ def check_serving_against_cpu(np, torch, dev):
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeSession, prefill_step
-    for arch in ("zamba2_7b", "h2o_danube3_4b", "rwkv6_3b"):
+    for arch in ("zamba2_7b", "h2o_danube3_4b", "rwkv6_3b",
+                 "qwen3_moe_30b_a3b"):
         cfg = get_smoke_config(arch)
         on = {"cpu": M.init_model(torch.Generator().manual_seed(0), cfg)}
         on["cuda"] = copy.deepcopy(on["cpu"]).to(dev)
@@ -465,41 +574,111 @@ def check_serving_against_cpu(np, torch, dev):
               f"session tokens identical", flush=True)
 
 
+def moe_drop_log(moe):
+    """Instrument ``moe.moe_ffn`` (restored by calling the returned
+    ``restore``): each call appends (capacity, tokens of the busiest expert,
+    whether the sequence's last token was dropped at one of its experts)
+    to ``log``."""
+    real = moe.moe_ffn
+    log = []
+
+    def spy(params, cfg, x, ctx=None, inference=False):
+        C = moe.expert_capacity(x.shape[1], cfg.moe,
+                                moe.INFERENCE_CAPACITY_FACTOR if inference
+                                else None)
+        routed = moe.route(params["router"], x, cfg.moe)[0] > 0   # (B,S,E)
+        earlier = routed[:, :-1].sum(dim=1)
+        log.append((C, int(routed.sum(dim=1).max()),
+                    bool((routed[:, -1] & (earlier >= C)).any())))
+        return real(params, cfg, x, ctx, inference)
+
+    def restore():
+        moe.moe_ffn = real
+    moe.moe_ffn = spy
+    return log, restore
+
+
 def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
-    """Phase 7: prefill + decode == forward, ``arch`` at full width and
-    ``n_layers`` deep."""
+    """Phase 7: prefill + decode == forward (with the MoE capacity of
+    prefill and decode), ``arch`` at full width and ``n_layers`` deep.
+
+    A MoE config is held to it where no token is dropped, as
+    tests/test_serve.py holds the smoke configs, whose inference capacity
+    is the whole sequence: with the capacity factor raised to E / top_k
+    every expert can take every token. At the served factor, 4.0, random
+    weights route most tokens to a few experts; the forward over S + 1
+    tokens then drops the last token at the experts past capacity, which
+    the one-token decode never does. That run is printed with its drops,
+    and held only where the forward dropped nothing of the last token."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.serve.engine import prefill_step
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               param_dtype="float32", compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
     params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
     S = 1024
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, S + 1))).to(dev)
-    ref = M.logits(params, cfg, M.forward(params, cfg, {"tokens": toks})
-                   [:, -1])[:, :cfg.vocab]
-    _, caches = prefill_step(params, cfg, {"tokens": toks[:, :S]},
-                             capacity=S + 8)
-    dec, _ = M.decode_step(params, cfg, toks[:, S:], caches)
-    err = rel_err(dec[:, :cfg.vocab], ref)
-    if not (torch.isfinite(dec).all() and err < 5e-3):
+
+    def prefill_decode_vs_forward():
+        ref = M.logits(params, cfg, M.forward(
+            params, cfg, {"tokens": toks}, inference=True)[:, -1])
+        _, caches = prefill_step(params, cfg, {"tokens": toks[:, :S]},
+                                 capacity=S + 8)
+        dec, _ = M.decode_step(params, cfg, toks[:, S:], caches)
+        if not torch.isfinite(dec).all():
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
+        return rel_err(dec[:, :cfg.vocab], ref[:, :cfg.vocab])
+
+    note = ""
+    if cfg.moe is not None:
+        served = moe.INFERENCE_CAPACITY_FACTOR
+        log, restore = moe_drop_log(moe)
+        try:
+            served_err = prefill_decode_vs_forward()
+        finally:
+            restore()
+        forward = log[:n_layers]               # the forward's layers first
+        dropped = sum(d for _, _, d in forward)
+        if not (served_err < 5e-3 or dropped):
+            raise AssertionError(f"{cfg.name}: prefill + decode vs forward "
+                                 f"rel {served_err} (< 5e-3) with the last "
+                                 f"token dropped in no layer")
+        note = (f"; at the served capacity factor {served}: rel "
+                f"{served_err:.3g}, the forward's busiest expert took "
+                f"{max(n for _, n, _ in forward)} of {S + 1} tokens (C = "
+                f"{forward[0][0]}) and the last token was dropped in "
+                f"{dropped} of {n_layers} layers, so not held there")
+        moe.INFERENCE_CAPACITY_FACTOR = cfg.moe.num_experts / cfg.moe.top_k
+        try:
+            err = prefill_decode_vs_forward()
+        finally:
+            moe.INFERENCE_CAPACITY_FACTOR = served
+        note = (f" with the capacity factor E / top_k = "
+                f"{cfg.moe.num_experts // cfg.moe.top_k} (C = S, nothing "
+                f"dropped)" + note)
+    else:
+        err = prefill_decode_vs_forward()
+    if not err < 5e-3:
         raise AssertionError(f"full-width prefill + decode vs forward: rel "
                              f"{err} (< 5e-3)")
     print(f"[check] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
           f"float32, S={S}: prefill + decode vs forward rel {err:.3g} "
-          f"(< 5e-3)", flush=True)
-    del params, caches
+          f"(< 5e-3){note}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del params
 
 
 def profile_serving(torch, sess, prompts):
-    """Phases 8 and 8b: the card's busy share while serving a model at full
-    size, from ``torch.profiler`` traces of the main path's drained session
-    serving its first prompts again: the kernels' summed device time over
-    the window's host wall time, for the step that admits a prompt to
-    every slot (the prefills, then one decode step) and for the 4 decode
-    steps after it. The profiler adds host time of its own, so each share
+    """Phases 8, 8b and 8c: the card's busy share while serving a model at
+    full size, from ``torch.profiler`` traces of the main path's drained
+    session serving its first prompts again: the kernels' summed device
+    time over the window's host wall time, and the five kernels that took
+    most of it, for the step that admits a prompt to every slot (the
+    prefills, then one decode step) and for the 4 decode steps after it. The profiler adds host time of its own, so each share
     is a lower bound; the kernel time per step is the number to compare
     with the main path's step times."""
     from torch.autograd import DeviceType
@@ -520,15 +699,20 @@ def profile_serving(torch, sess, prompts):
         ks = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ks) / 1e6
+        top = sorted(ks, key=lambda e: -e.self_device_time_total)[:5]
         return {"wall_s": wall, "kernel_s": busy, "busy": busy / wall,
-                "kernels": sum(e.count for e in ks)}
+                "kernels": sum(e.count for e in ks),
+                "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+                        for e in top]}
 
     lens = "+".join(str(len(p)) for p in prompts[:sess.B])
     out = {f"admit_{lens}": window(1), "decode_4_steps": window(4)}
     for name, r in out.items():
         print(f"[trace] {name}: wall {r['wall_s'] * 1e3:.1f} ms, kernels "
               f"{r['kernel_s'] * 1e3:.1f} ms in {r['kernels']} launches, "
-              f"busy {r['busy'] * 100:.1f}% (profiled)", flush=True)
+              f"busy {r['busy'] * 100:.1f}% (profiled); most time: "
+              + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in r["top"]),
+              flush=True)
     return out
 
 
@@ -615,6 +799,28 @@ def time_lm_kernels(np, torch, dev):
                                   ops_ms=ops / BF16_OPS_PER_S * 1e3,
                                   rate="989 TFLOP/s", cuda_core_ms=core_ms)
     del q, k, v, o
+    # qwen3-moe's prefill shape: 8 query heads a kv head, hd 128
+    *shape, causal, win = QWEN_FLASH
+    B, S, H, KV, hd = shape
+    q, k, v = flash_inputs(np, torch, shape, "bfloat16", dev, seed=98)
+    err = flash_err(torch, fa, q, k, v, causal, win, tc=True)
+    ms_k = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=20)
+    plain = time_ms(torch, lambda: fa.reference(q, k, v), reps=5)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True), reps=20)
+    o = torch.empty_like(q)
+    core = cuda_core_kernel(torch, fa, B, S, H, KV, hd, hd ** -0.5, 1, 0)
+    core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
+                                          v.data_ptr(), o.data_ptr()),
+                      reps=20)
+    ops = 4 * hd * H * B * S * (S + 1) // 2
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    out["flash_attention_qwen3_moe"] = dict(
+        err=err, ms=ms_k, plain_ms=plain, library_ms=lib, ops=ops,
+        bytes=n_bytes, ops_ms=ops / BF16_OPS_PER_S * 1e3, rate="989 TFLOP/s",
+        cuda_core_ms=core_ms)
+    del q, k, v, o
     B, L, H, P, G, N, chunk = PATH_SCAN
     x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
                                    seed=99)
@@ -679,7 +885,8 @@ def time_lm_kernels(np, torch, dev):
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = ("null" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)")
+               else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention"
+                    f"{', enable_gqa' if 'qwen3' in name else ''})")
         core = f"; the CUDA-core kernel on the same inputs " \
                f"{r['cuda_core_ms']:.4f} ms"
         if "fp32_rate_bound_ms" in r:
@@ -820,6 +1027,11 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                              f"{out['n_spots']} over {out['n_frames']}")
     if not out["recovered"] > 0.7:
         raise AssertionError(f"stage 2 recovered {out['recovered']} <= 0.7")
+    del out
+    gc.collect()
+
+    # 4b. the streamed and the multi-session drivers at 2048x2048
+    driver_launches = check_hedm_drivers(torch, dev, hr, zero_counts)
 
     # 5. the kernel at the main path's shape: equal to the plain version
     # on every frame, then timed beside its bound and its plain version
@@ -856,6 +1068,19 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
           f"per chunk; no single PyTorch call computes this function "
           f"(library_ms null); {n_bytes / ms / 1e6:.1f} GB/s = "
           f"{bound_ms / ms * 100:.1f}% of the bound")
+    # the port's nf_reduction row (benchmarks/paper_figures.py:91-108) from
+    # the same time: microseconds a frame, and 736 frames
+    per_frame_us = ms * 1e3 / n_frames
+    nf_row = {"nf_reduction_per_frame_us": per_frame_us,
+              "px_per_s": SIZE * SIZE / (per_frame_us * 1e-6),
+              "nf_reduction_736_frames_est_us": per_frame_us * 736,
+              "paper_736_frames_s": 106.0, "paper_cores": 320}
+    print(f"[nf_reduction] nf_reduction_per_frame {per_frame_us:.4f} us "
+          f"(px_per_s={nf_row['px_per_s']:.3e}); nf_reduction_736_frames_est "
+          f"{per_frame_us * 736:.1f} us = {per_frame_us * 736e-3:.4f} ms on "
+          f"one card, against the paper's 106 s on 320 cores "
+          f"({106.0 / (per_frame_us * 736e-6):.0f}x); from the kernel time "
+          f"above, no second timing", flush=True)
     del ft, dt
     gc.collect()
     torch.cuda.empty_cache()
@@ -866,6 +1091,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     check_serving_against_cpu(np, torch, dev)
     check_full_width_prefill_decode(np, torch, dev, "zamba2_7b", 12)
     check_full_width_prefill_decode(np, torch, dev, "rwkv6_3b", 4)
+    check_full_width_prefill_decode(np, torch, dev, "qwen3_moe_30b_a3b", 4)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -934,6 +1160,21 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         raise AssertionError(f"rwkv6_wkv: {lm_tc['rwkv6_wkv']} of "
                              f"{lm_launches['rwkv6_wkv']} launches on the "
                              f"tensor-core kernel")
+    # 8c. qwen3-moe-30b-a3b serving at full width and depth, the rwkv6
+    # session freed
+    qw_launches, qw_tc = serve_main_path("qwen3-moe-30b-a3b", lambda cfg, n: {
+        "hedm_reduce": 0, "flash_attention": n * cfg.n_layers,
+        "mamba2_scan": 0, "rwkv6_wkv": 0})
+    print(f"[lm] tensor-core launches on the qwen3-moe path: "
+          f"{qw_tc['flash_attention']} of {qw_launches['flash_attention']}",
+          flush=True)
+    if qw_tc["flash_attention"] != qw_launches["flash_attention"]:
+        raise AssertionError(f"flash_attention: {qw_tc['flash_attention']} "
+                             f"of {qw_launches['flash_attention']} qwen3-moe "
+                             f"launches on the tensor-core kernel")
+    # the kernels line counts the launches of both attention paths
+    lm_launches["flash_attention"] += qw_launches["flash_attention"]
+    lm_tc["flash_attention"] += qw_tc["flash_attention"]
 
     # 9. the LM kernels at the path's shapes
     timed = time_lm_kernels(np, torch, dev)
@@ -947,6 +1188,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "exact": max_err == 0,
+        "driver_launches": driver_launches, "nf_reduction": nf_row,
     }]
     for name, line in [("flash_attention", 110), ("mamba2_scan", 89),
                        ("rwkv6_wkv", 80)]:
@@ -958,7 +1200,14 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
             "launches": lm_launches[name],
             "launches_tc": lm_tc[name], "cuda_core_ms": r["cuda_core_ms"],
             **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {}),
-            "max_abs_err": max(errs[name], r["err"]), "ms": r["ms"],
+            **({"at_qwen3_moe_shape": {
+                k: timed["flash_attention_qwen3_moe"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "cuda_core_ms", "err")}}
+               if name == "flash_attention" else {}),
+            "max_abs_err": max(errs[name], r["err"], *(
+                [timed["flash_attention_qwen3_moe"]["err"]]
+                if name == "flash_attention" else [])), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(smi)

@@ -5,14 +5,20 @@ full width and depth on the card, from random weights made from ``--seed``:
 8 requests with prompts of 256 to 2048 tokens (drawn with numpy from the
 seed), 32 new tokens each, on 4 slots of a 4096-token cache. ``--arch
 rwkv6-3b`` serves rwkv6-3b the same way; its state per slot is O(1), so
-the capacity does not bound it.
+the capacity does not bound it. ``--arch qwen3-moe-30b-a3b`` serves the
+MoE model (48 layers, 128 experts of 768, top 8; 30.5 B parameters, 61.1
+GB in bf16) the same way; one 80 GB card holds it whole.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu --prompt-len 8 24 --max-new 4 --capacity 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu --prompt-len 8 24 --max-new 4 --capacity 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --prompt-len 8 24 \
+        --max-new 4 --capacity 64
 """
 from __future__ import annotations
 
@@ -114,7 +120,9 @@ def main(arch: str = "zamba2-7b", smoke: bool = False, requests: int = 8,
 
 def cli() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="zamba2-7b",
+                    help="zamba2-7b, rwkv6-3b, qwen3-moe-30b-a3b, or another "
+                         "ported dense-GQA config")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config of the same family")
     ap.add_argument("--requests", type=int, default=8)

@@ -8,7 +8,7 @@ tensors, its plain version on the CPU. The reference's ``attention_prefill``
 always ran its einsum path (``grouped_sdpa``); the port takes the kernel in
 both. Decode attends over the cache with the plain ``grouped_sdpa``, as the
 reference does outside Pallas, and writes the cache in place. MLA is not
-ported yet (ROADMAP §1 item 9).
+ported yet (ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.models.layers import (Params, apply_rope, const, dense_init,
 
 NEG_INF = -1e30
 MLA_TODO = ("MLA attention (deepseek-v2-lite) is not ported yet: "
-            "ROADMAP §1 item 9")
+            "ROADMAP §1 item 3")
 
 
 class KVCache(NamedTuple):

@@ -4,8 +4,10 @@
 parameters as numpy arrays (``jax.tree.map(np.asarray, params)`` on the
 caller's side; nothing here imports JAX) and returns a
 `repro_torch.models.model.Model` holding the same values. The stacked
-leading layer axis of ``groups``, ``loras``, ``tail`` and ``layers`` is cut
-into the port's per-layer modules. Every array must land on a parameter of
+leading layer axis of ``groups``, ``loras``, ``tail``, ``prefix`` and
+``layers`` is cut into the port's per-layer modules; a MoE block's experts
+stay stacked (``moe.w_gate``, ``w_up``, ``w_down``), as the port keeps
+them. Every array must land on a parameter of
 the same shape and every parameter must be filled, or it raises.
 """
 from __future__ import annotations
@@ -75,7 +77,8 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     reference's parameter ``tree`` (numpy arrays). ``dtype`` overrides the
     config's parameter type, as :class:`Model` does; parameters that the
     reference keeps in float32 whatever that type (Mamba2's ``dt_bias``,
-    ``A_log`` and ``D``; RWKV6's ``w0`` and ``u``) stay float32. Nested
+    ``A_log`` and ``D``; RWKV6's ``w0`` and ``u``; the MoE ``router``) stay
+    float32. Nested
     parameters (RWKV6's ``mixer.ln_x.scale``) land on the nested module."""
     model = Model(cfg, None, resolve_device(device), dtype)
     filled: set = set()

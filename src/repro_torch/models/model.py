@@ -4,7 +4,7 @@ points; analytic parameter counts.
 Counterpart of ``repro.models.model`` for token inputs (``{"tokens": (B,S)
 int}``). The vision and audio frontends, and the training loss
 (``loss_fn``, ``chunked_cross_entropy``), are not ported yet (ROADMAP §1
-items 9 and 10).
+items 4 and 5).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.models.layers import (Embedding, Params, RMSNorm, dense_init,
                                        dt, embed, rmsnorm)
 
 FRONTEND_TODO = ("the {kind} frontend is not ported yet: the port takes "
-                 "token inputs only (ROADMAP §1 item 9, frontends)")
+                 "token inputs only (ROADMAP §1 item 4, frontends)")
 
 
 class Model(Params):
@@ -56,14 +56,16 @@ def apply_frontend(params, cfg: ModelConfig,
     return embed(params["embed"], inputs["tokens"])
 
 
-def forward(params, cfg: ModelConfig,
-            inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Hidden states after the final norm: (B,S,D)."""
+def forward(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
+            inference: bool = False) -> torch.Tensor:
+    """Hidden states after the final norm: (B,S,D). ``inference`` relaxes
+    the MoE capacity, as prefill and decode do; the MoE aux loss is not
+    returned (the port serves only)."""
     x = apply_frontend(params, cfg, inputs).to(dt(cfg.compute_dtype))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    x = tf.stack_forward(params["stack"], cfg, x, positions)
+    x = tf.stack_forward(params["stack"], cfg, x, positions, inference)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

@@ -1,0 +1,146 @@
+"""Mixture-of-experts with capacity-bounded gather dispatch.
+
+Counterpart of the single-device path of ``repro.models.moe``:
+
+  * token-choice routing (top-k of an fp32 softmax) with a per-expert
+    capacity C = ``expert_capacity``; tokens over capacity are dropped
+    (their residual passes through), relaxed to ``INFERENCE_CAPACITY_FACTOR``
+    at inference;
+  * each expert picks the tokens routed to it by sequence priority (the
+    earliest first): a top-C over ``-position`` where assigned, ``-inf``
+    elsewhere, gives a (B,E,C) index tensor and its ``valid`` mask;
+  * the tokens are gathered into (B,E,C,D), the three expert products run
+    as batched matmuls over the experts, and a scatter-add
+    (``index_add_``) combines them back into (B,S,D).
+
+The reference computes these with XLA ops, outside any Pallas kernel, so
+the port uses PyTorch's ``topk``, indexing, ``bmm`` and ``index_add_``.
+The expert-parallel dispatch over a mesh (the reference's
+``_moe_ffn_shardmap``) is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import (MLP, Params, _trunc_normal, dense_init,
+                                       dt, mlp, param)
+
+INFERENCE_CAPACITY_FACTOR = 4.0   # relaxed at inference (drop ~never)
+MESH_TODO = ("expert-parallel MoE dispatch over a mesh is not ported yet: "
+             "ROADMAP §1 item 8 (distributed)")
+
+
+def expert_capacity(num_tokens: int, moe: MoEConfig,
+                    factor: Optional[float] = None) -> int:
+    """Slots per expert and batch row: ``num_tokens * top_k * factor / E``,
+    at least ``top_k`` and at most ``num_tokens``."""
+    f = moe.capacity_factor if factor is None else factor
+    cap = int(num_tokens * moe.top_k * f / moe.num_experts)
+    return min(max(moe.top_k, cap), num_tokens)
+
+
+def _stacked_init(gen: Optional[torch.Generator], n: int, in_dim: int,
+                  out_dim: int, dtype: torch.dtype, device):
+    """``n`` fan-in truncated-normal ``(in_dim, out_dim)`` matrices stacked
+    as one ``(n, in_dim, out_dim)`` parameter, made in float32 and cast to
+    ``dtype`` (one float32 copy of the stack at a time); uninitialised when
+    ``gen`` is None."""
+    if gen is None:
+        return param(torch.empty((n, in_dim, out_dim), dtype=dtype,
+                                 device=device))
+    w = _trunc_normal(gen, (n, in_dim, out_dim), device)
+    return param(w.mul_(1.0 / math.sqrt(in_dim)).to(dtype))
+
+
+class MoE(Params):
+    """``router`` (D, E) float32 whatever the parameter type; the experts as
+    stacked ``w_gate``/``w_up`` (E, D, F) and ``w_down`` (E, F, D); and
+    ``shared`` (a SwiGLU MLP of ``shared_d_ff``) when the config has shared
+    experts."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        moe = cfg.moe
+        dtype = dtype or dt(cfg.param_dtype)
+        d, E, f = cfg.d_model, moe.num_experts, moe.expert_d_ff
+        self.router = dense_init(gen, d, E, torch.float32, device)
+        self.w_gate = _stacked_init(gen, E, d, f, dtype, device)
+        self.w_up = _stacked_init(gen, E, d, f, dtype, device)
+        self.w_down = _stacked_init(gen, E, f, d, dtype, device)
+        if moe.num_shared_experts:
+            self.shared = MLP(gen, d, moe.shared_d_ff, dtype, device)
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router: (combine weights (B,S,E) dense fp32, zero where a token is
+    not routed; top-k expert ids (B,S,K); the Switch load-balance loss
+    E * sum_e f_e p_e)."""
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_ids = torch.topk(probs, moe.top_k, dim=-1)          # (B,S,K)
+    if moe.norm_topk_prob:
+        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-9)
+    onehot = F.one_hot(top_ids, moe.num_experts).float()          # (B,S,K,E)
+    dense_w = torch.einsum("bsk,bske->bse", top_w, onehot)
+    frac_tokens = onehot.sum(dim=2).mean(dim=(0, 1)) / moe.top_k
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = moe.num_experts * torch.sum(frac_tokens * frac_probs)
+    return dense_w, top_ids, aux
+
+
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, ctx=None,
+            inference: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN. x (B,S,D) -> (out (B,S,D) in x's type, aux loss scalar).
+
+    Training uses the configured capacity factor; inference relaxes it to
+    ``INFERENCE_CAPACITY_FACTOR``. A mesh context (``ctx``) asks for the
+    expert-parallel dispatch, which raises: it is not ported yet."""
+    if ctx is not None:
+        raise NotImplementedError(MESH_TODO)
+    moe = cfg.moe
+    B, S, D = x.shape
+    E = moe.num_experts
+    C = expert_capacity(S, moe,
+                        INFERENCE_CAPACITY_FACTOR if inference else None)
+    dense_w, _, aux = route(params["router"], x, moe)              # (B,S,E)
+
+    # expert-side selection of routed tokens (sequence priority). The slots
+    # past an expert's routed tokens hold -inf scores in an unspecified
+    # order; they are masked by ``valid`` and their inputs zeroed, so their
+    # outputs are exactly 0 whichever tokens they point at.
+    neg_pos = -torch.arange(S, dtype=torch.float32, device=x.device)
+    score = torch.where(dense_w.transpose(1, 2) > 0.0, neg_pos,
+                        float("-inf"))                             # (B,E,S)
+    top_score, token_idx = torch.topk(score, C, dim=-1)            # (B,E,C)
+    valid = torch.isfinite(top_score)
+
+    # dispatch: gather tokens into (B,E,C,D)
+    b_idx = torch.arange(B, device=x.device)[:, None, None]
+    e_idx = torch.arange(E, device=x.device)[None, :, None]
+    xin = x[b_idx, token_idx]                                      # (B,E,C,D)
+    w_in = dense_w[b_idx, token_idx, e_idx]                        # (B,E,C)
+    xin = torch.where(valid[..., None], xin, 0.0)
+
+    # expert compute: one batched matmul over the experts per product
+    xe = xin.transpose(0, 1).reshape(E, B * C, D)
+    gate = torch.bmm(xe, params["w_gate"])
+    up = torch.bmm(xe, params["w_up"])
+    y = torch.bmm(F.silu(gate) * up, params["w_down"])             # (E,BC,D)
+    y = y.reshape(E, B, C, D).transpose(0, 1)                      # (B,E,C,D)
+    y = y * torch.where(valid, w_in, 0.0).to(y.dtype)[..., None]
+
+    # combine: scatter-add back to (B,S,D)
+    rows = (b_idx * S + token_idx).reshape(-1)
+    out = torch.zeros((B * S, D), dtype=y.dtype, device=x.device)
+    out.index_add_(0, rows, y.reshape(-1, D))
+    out = out.reshape(B, S, D)
+    if moe.num_shared_experts:
+        out = out + mlp(params["shared"], x)
+    return out, aux

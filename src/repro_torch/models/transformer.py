@@ -6,14 +6,14 @@ stack is an ``nn.ModuleList`` of per-layer blocks and a Python loop, and
 caches are lists of per-layer caches. Two patterns:
 
   * ``uniform``      -- one homogeneous list of ``attn_mlp`` blocks (dense
-                        FFN), ``mamba2`` blocks or ``rwkv6`` blocks
-                        (time-mix and channel-mix, each after its norm).
+                        FFN, or MoE FFN when the config has ``moe``, after
+                        a ``prefix`` of ``first_k_dense`` dense blocks),
+                        ``mamba2`` blocks or ``rwkv6`` blocks (time-mix and
+                        channel-mix, each after its norm).
   * ``zamba_hybrid`` -- groups of ``attn_every`` Mamba2 blocks, each group
                         followed by the SHARED attention block (weights
                         shared across sites, per-site LoRA deltas on q and
                         k); the remainder layers form a tail.
-
-MoE blocks (qwen3-moe, deepseek) are not ported yet (ROADMAP §1 item 9).
 """
 from __future__ import annotations
 
@@ -25,13 +25,13 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (MLP, Params, RMSNorm, const,
                                        dense_init, dt, mlp, rmsnorm)
 
 ZAMBA_LORA_RANK = 64
-MOE_TODO = "MoE blocks are not ported yet: ROADMAP §1 item 9 (moe)"
 
 
 # ---------------------------------------------------------------------------
@@ -40,10 +40,12 @@ MOE_TODO = "MoE blocks are not ported yet: ROADMAP §1 item 9 (moe)"
 
 class Block(Params):
     """One block: Mamba2 mixer, RWKV6 time-mix + channel-mix, or attention
-    + dense SwiGLU FFN."""
+    + an FFN: ``moe`` when ``use_moe``, else the dense SwiGLU ``mlp`` (of
+    ``moe.dense_d_ff`` in the dense prefix of a MoE config)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
-                 device, dtype: Optional[torch.dtype] = None):
+                 device, dtype: Optional[torch.dtype] = None,
+                 use_moe: bool = False):
         super().__init__()
         dtype = dtype or dt(cfg.param_dtype)
         if cfg.block_kind == "mamba2":
@@ -56,11 +58,26 @@ class Block(Params):
             self.mixer = rw.RWKV6(cfg, gen, device, dtype)
             return
         self.attn = attn_mod.Attention(cfg, gen, device, dtype)
-        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        if use_moe:
+            self.moe = moe_mod.MoE(cfg, gen, device, dtype)
+            return
+        d_ff = (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.first_k_dense
+                else cfg.d_ff)
+        self.mlp = MLP(gen, cfg.d_model, d_ff, dtype, device)
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
-    return Block(cfg, gen, gen.device)
+def init_block(gen: torch.Generator, cfg: ModelConfig,
+               use_moe: bool = False) -> Block:
+    return Block(cfg, gen, gen.device, use_moe=use_moe)
+
+
+def _ffn(params, cfg: ModelConfig, h: torch.Tensor,
+         inference: bool) -> torch.Tensor:
+    """The block's FFN on its normed input: MoE (its aux loss dropped: the
+    port serves only) or the dense MLP."""
+    if "moe" in params:
+        return moe_mod.moe_ffn(params["moe"], cfg, h, inference=inference)[0]
+    return mlp(params["mlp"], h)
 
 
 def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor
@@ -79,8 +96,10 @@ def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor
 
 
 def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward for one block."""
+                  positions: torch.Tensor,
+                  inference: bool = False) -> torch.Tensor:
+    """Full-sequence forward for one block; ``inference`` relaxes a MoE
+    FFN's capacity."""
     if cfg.block_kind == "mamba2":
         return x + m2.mamba2_block(params["mixer"], cfg,
                                    rmsnorm(params["norm"], x, cfg.norm_eps))
@@ -88,7 +107,8 @@ def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
         return _rwkv_prefill(params, cfg, x)[0]
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(params["attn"], cfg, h, positions)
-    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+    return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
+                    inference)
 
 
 def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
@@ -109,8 +129,8 @@ def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache)
     x = x + out
-    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps)), \
-        cache
+    return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
+                    True), cache
 
 
 def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
@@ -127,8 +147,8 @@ def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
     out, kv = attn_mod.attention_prefill(params["attn"], cfg, h, positions,
                                          capacity)
     x = x + out
-    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps)), \
-        kv
+    return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
+                    True), kv
 
 
 # ---------------------------------------------------------------------------
@@ -216,14 +236,16 @@ def _sites(cfg: ModelConfig) -> Tuple[int, int]:
 class Stack(Params):
     """All blocks of the configured pattern. zamba_hybrid: ``groups``
     (n_sites * attn_every Mamba2 blocks, in order), ``shared_attn``,
-    ``loras`` (one per site) and ``tail``; uniform: ``layers``."""
+    ``loras`` (one per site) and ``tail``; uniform: ``layers`` (MoE blocks
+    when the config has ``moe``), after a ``prefix`` of the MoE config's
+    ``first_k_dense`` dense blocks."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device, dtype: Optional[torch.dtype] = None):
         super().__init__()
 
-        def blocks(n):
-            return nn.ModuleList(Block(cfg, gen, device, dtype)
+        def blocks(n, use_moe=False):
+            return nn.ModuleList(Block(cfg, gen, device, dtype, use_moe)
                                  for _ in range(n))
         if cfg.block_pattern == "zamba_hybrid":
             n_sites, n_tail = _sites(cfg)
@@ -234,9 +256,23 @@ class Stack(Params):
             if n_tail:
                 self.tail = blocks(n_tail)
             return
-        if cfg.moe is not None:
-            raise NotImplementedError(MOE_TODO)
-        self.layers = blocks(cfg.n_layers)
+        n_dense = _n_dense(cfg)
+        if n_dense:
+            self.prefix = blocks(n_dense)
+        self.layers = blocks(cfg.n_layers - n_dense, cfg.moe is not None)
+
+
+def _n_dense(cfg: ModelConfig) -> int:
+    """Dense blocks ahead of a uniform MoE stack (0 without MoE)."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
+
+
+def _uniform(params) -> List[Tuple[str, List[Block]]]:
+    """A uniform stack's block lists in order: ``prefix`` (where present),
+    then ``layers``."""
+    groups = [("prefix", list(params["prefix"]))] if "prefix" in params \
+        else []
+    return groups + [("layers", list(params["layers"]))]
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Stack:
@@ -254,8 +290,10 @@ def _tail(params) -> List[Block]:
 
 
 def stack_forward(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward through all layers."""
+                  positions: torch.Tensor,
+                  inference: bool = False) -> torch.Tensor:
+    """Full-sequence forward through all layers; ``inference`` relaxes the
+    MoE capacity."""
     if cfg.block_pattern == "zamba_hybrid":
         for group, lora in zip(_site_groups(params, cfg), params["loras"]):
             for block in group:
@@ -265,8 +303,9 @@ def stack_forward(params, cfg: ModelConfig, x: torch.Tensor,
         for block in _tail(params):
             x = block_forward(block, cfg, x, positions)
         return x
-    for block in params["layers"]:
-        x = block_forward(block, cfg, x, positions)
+    for _, blocks in _uniform(params):
+        for block in blocks:
+            x = block_forward(block, cfg, x, positions, inference)
     return x
 
 
@@ -278,7 +317,7 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 device) -> Dict[str, List[Any]]:
     """Per-layer decode caches matching the stack: zamba_hybrid ``groups``
     (SSMState each), ``shared_kv`` (KVCache per site) and ``tail``; uniform
-    ``layers``."""
+    ``layers`` and, ahead of a MoE stack's dense blocks, ``prefix``."""
     if cfg.block_pattern == "zamba_hybrid":
         n_sites, n_tail = _sites(cfg)
 
@@ -297,8 +336,15 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
     if cfg.block_kind == "rwkv6":
         return {"layers": [rw.init_rwkv_state(cfg, batch, device)
                            for _ in range(cfg.n_layers)]}
-    return {"layers": [attn_mod.init_kv_cache(cfg, batch, capacity, device)
-                       for _ in range(cfg.n_layers)]}
+    n_dense = _n_dense(cfg)
+
+    def kv(n):
+        return [attn_mod.init_kv_cache(cfg, batch, capacity, device)
+                for _ in range(n)]
+    caches = {"layers": kv(cfg.n_layers - n_dense)}
+    if n_dense:
+        caches["prefix"] = kv(n_dense)
+    return caches
 
 
 def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor
@@ -321,10 +367,12 @@ def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor
                 x, c = block_decode(block, cfg, x, c)
                 new["tail"].append(c)
         return x, new
-    new = {"layers": []}
-    for block, c in zip(params["layers"], caches["layers"]):
-        x, c = block_decode(block, cfg, x, c)
-        new["layers"].append(c)
+    new = {}
+    for kind, blocks in _uniform(params):
+        new[kind] = []
+        for block, c in zip(blocks, caches[kind]):
+            x, c = block_decode(block, cfg, x, c)
+            new[kind].append(c)
     return x, new
 
 
@@ -348,8 +396,10 @@ def stack_prefill(params, cfg: ModelConfig, x: torch.Tensor,
                 x, c = block_prefill(block, cfg, x, positions, capacity)
                 caches["tail"].append(c)
         return x, caches
-    caches = {"layers": []}
-    for block in params["layers"]:
-        x, c = block_prefill(block, cfg, x, positions, capacity)
-        caches["layers"].append(c)
+    caches = {}
+    for kind, blocks in _uniform(params):
+        caches[kind] = []
+        for block in blocks:
+            x, c = block_prefill(block, cfg, x, positions, capacity)
+            caches[kind].append(c)
     return x, caches

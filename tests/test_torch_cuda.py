@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.hedm import pipeline as T
+from repro_torch.hedm import service, streaming
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hedm_reduce as port
 from repro_torch.kernels import mamba2_scan as ms
@@ -222,6 +223,30 @@ def test_flash_attention_tile_edges_bf16(card, B, S, H, KV, hd, causal,
     assert_close(out, ref, 1e-3, 2.0 ** -7)
 
 
+#: qwen3-moe-30b-a3b's prefill widths (32 query heads, 4 kv heads of 128:
+#: no zero-padded columns, 8 query heads a kv head) at the eight prompt
+#: lengths of its serving path and at the 128-row tile's edges
+QWEN_FLASH_SHAPES = [(1, S, 32, 4, 128, True, 0)
+                     for S in (1781, 1398, 1172, 739, 807, 329, 390, 285,
+                               127, 128, 129)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,win", QWEN_FLASH_SHAPES)
+def test_flash_attention_qwen3_moe_shape_bf16(card, B, S, H, KV, hd, causal,
+                                              win):
+    """bf16 at hd 128 and 8 query heads a kv head on the tensor-core
+    kernel, within 1e-3 + 2^-7 |ref| of the plain version in float32."""
+    q, k, v = (torch.from_numpy(a).to(card).to(torch.bfloat16)
+               for a in flash_inputs(B, S, H, KV, hd, seed=S + KV))
+    before = fa.flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before + 1
+    ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
+                       window=win)
+    assert_close(out, ref, 1e-3, 2.0 ** -7)
+
+
 @pytest.mark.parametrize("shape", EDGE_SCAN_SHAPES, ids=str)
 def test_mamba2_scan_tile_edges_bf16(card, shape):
     """bf16 on the tensor-core kernel against the plain version run in
@@ -413,7 +438,8 @@ def test_lm_kernels_reject_non_contiguous_input(card):
 
 #: the kernel each smoke config's prefill launches
 ARCH_KERNEL = {"zamba2_7b": fa.flash_attention, "h2o_danube3_4b":
-               fa.flash_attention, "rwkv6_3b": wk.rwkv6_wkv}
+               fa.flash_attention, "rwkv6_3b": wk.rwkv6_wkv,
+               "qwen3_moe_30b_a3b": fa.flash_attention}
 
 
 @pytest.mark.parametrize("arch", sorted(ARCH_KERNEL))
@@ -445,7 +471,17 @@ def test_prefill_and_decode_on_card_match_cpu(card, arch):
 def test_rwkv_session_on_card_matches_cpu(card):
     """rwkv6 smoke weights made on the CPU, served by a 2-slot session on
     both devices: greedy token ids identical."""
-    cfg = get_smoke_config("rwkv6_3b")
+    _session_on_card_matches_cpu(card, "rwkv6_3b")
+
+
+def test_qwen3_moe_session_on_card_matches_cpu(card):
+    """The same for the qwen3-moe smoke config (its MoE FFN in every
+    layer)."""
+    _session_on_card_matches_cpu(card, "qwen3_moe_30b_a3b")
+
+
+def _session_on_card_matches_cpu(card, arch):
+    cfg = get_smoke_config(arch)
     cpu = M.init_model(torch.Generator().manual_seed(0), cfg)
     on_card = M.Model(cfg, None, card)
     on_card.load_state_dict(cpu.state_dict())
@@ -461,3 +497,38 @@ def test_rwkv_session_on_card_matches_cpu(card):
                          for r in sess.run_to_completion()}
         assert sess.nonfinite_logits == 0
     assert served["cuda"] == served["cpu"] and len(served["cpu"]) == 4
+
+
+def test_streaming_driver_on_card(card):
+    """The streamed driver on the card at 256x256: online equals batch (the
+    driver raises otherwise), one ``hedm_reduce`` launch for the batch pass
+    and one a window, and the output equals the plain version's on the CPU
+    over the same seeded scan."""
+    before = hedm_reduce.launches
+    out = streaming.main(device=card, n_frames=16, frame_size=256,
+                         verbose=False)
+    assert hedm_reduce.launches == before + 1 + 16 // 8
+    frames, dark = T.simulate_detector_frames(16, size=256, n_spots=8,
+                                              seed=0, device=card)
+    ref = T.pack_reduced(T.reduce_frames(frames, dark, device="cpu"))
+    assert out["packed"].tobytes() == ref.tobytes()
+
+
+def test_service_driver_on_card(card):
+    """The multi-session driver on the card at 256x256, 4 frames a scan:
+    every output equals direct reduction (the driver raises otherwise), 12
+    session and 3 direct launches, and the outputs equal the plain
+    version's on the CPU over the same seeded scans."""
+    before = hedm_reduce.launches
+    out = service.main(device=card, n_frames=4, frame_size=256,
+                       verbose=False)
+    assert hedm_reduce.launches == before + 4 * 3 + 3
+    # the driver's dark frame is its last scan's
+    scans = [T.simulate_detector_frames(4, size=256, n_spots=6, seed=i,
+                                        device=card)
+             for i in range(len(service.SCANS))]
+    dark = scans[-1][1]
+    for name, (frames, _) in zip(service.SCANS, scans):
+        ref = T.pack_reduced(T.reduce_frames(frames, dark, device="cpu"))
+        assert all(o[name].tobytes() == ref.tobytes()
+                   for o in out["outputs"].values())

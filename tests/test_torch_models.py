@@ -1,14 +1,15 @@
 """The port's LM path against the reference package on the smoke configs.
 
 For zamba2-7b (Mamba2 + shared attention), h2o-danube3-4b (GQA with a
-sliding window), qwen3-32b (GQA with qk-norm) and rwkv6-3b (WKV6
-time-mix + channel-mix), the reference's
+sliding window), qwen3-32b (GQA with qk-norm), rwkv6-3b (WKV6
+time-mix + channel-mix) and qwen3-moe-30b-a3b (MoE FFN), the reference's
 ``init_model`` makes the weights, ``params_from_jax`` hands them to the port
 as numpy, and the same numpy tokens go through both: forward hidden states
 and logits, prefill logits and caches, and one decode step must agree
 within 1e-4 relative (float32 on both; max |diff| over max |reference|).
 The port's own prefill + decode must equal its forward within 5e-3, the
-bound of tests/test_serve.py. The kernels run as their plain versions here.
+bound of tests/test_serve.py. Forward runs with ``inference=True``, the MoE
+capacity of prefill and decode, as tests/test_serve.py runs it. The kernels run as their plain versions here.
 """
 import jax
 import jax.numpy as jnp
@@ -22,13 +23,15 @@ from repro.models import layers as jax_layers
 from repro.models import model as JM
 from repro.serve.engine import prefill_step as jax_prefill
 from repro_torch.configs import registry
+from repro_torch.configs.base import padded_vocab
 from repro_torch.models import attention as port_attention
 from repro_torch.models import layers as port_layers
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import prefill_step
 
-ARCHS = ["zamba2_7b", "h2o_danube3_4b", "qwen3_32b", "rwkv6_3b"]
+ARCHS = ["zamba2_7b", "h2o_danube3_4b", "qwen3_32b", "rwkv6_3b",
+         "qwen3_moe_30b_a3b"]
 B, S = 2, 20                 # S: a short chunk of the smoke SSM chunk (32)
 
 
@@ -68,7 +71,7 @@ def _tokens(pair, end=S):
 
 def test_forward_matches_reference(pair):
     cfg, params = pair["cfg"], pair["params"]
-    hidden = TM.forward(params, cfg, _tokens(pair))
+    hidden = TM.forward(params, cfg, _tokens(pair), inference=True)
     assert rel(hidden.numpy(), pair["hidden"]) < 1e-4
     ref = pair["hidden"] @ pair["table"].T
     out = TM.logits(params, cfg, hidden).numpy()
@@ -112,7 +115,7 @@ def test_decode_step_matches_reference(pair):
 def test_prefill_decode_equals_forward(pair):
     """The property of tests/test_serve.py on the port alone."""
     cfg, params = pair["cfg"], pair["params"]
-    hidden = TM.forward(params, cfg, _tokens(pair, S + 1))
+    hidden = TM.forward(params, cfg, _tokens(pair, S + 1), inference=True)
     ref = TM.logits(params, cfg, hidden[:, -1])
     _, caches = prefill_step(params, cfg, _tokens(pair), capacity=S + 8)
     dec, _ = TM.decode_step(
@@ -178,7 +181,9 @@ def test_param_count_matches_reference(arch):
 def test_full_size_model_on_meta_device(arch):
     """The full configs build (on the meta device: no memory) with about
     the analytic parameter count; zamba2-7b is ~6.8 B, rwkv6-3b within 1%
-    of its analytic 3,098,542,080."""
+    of its analytic 3,098,542,080; qwen3-moe-30b-a3b is its analytic
+    30,531,911,680 plus the norms and the padded vocab rows, which the
+    analytic count leaves out."""
     cfg = registry.get_config(arch)
     n = sum(p.numel() for p in TM.Model(cfg, None, "meta").parameters())
     assert abs(n - cfg.param_count()) / cfg.param_count() < 0.01
@@ -186,11 +191,17 @@ def test_full_size_model_on_meta_device(arch):
         assert 6.7e9 < n < 6.9e9
     if arch == "rwkv6_3b":
         assert cfg.param_count() == 3_098_542_080
+    if arch == "qwen3_moe_30b_a3b":
+        assert cfg.param_count() == 30_531_911_680
+        d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+        pad = padded_vocab(cfg.vocab) - cfg.vocab
+        assert n == (cfg.param_count() + L * (2 * d + 2 * hd) + d
+                     + 2 * pad * d)
 
 
 @pytest.mark.parametrize("arch,needle", [
-    ("deepseek_v2_lite_16b", "(MLA|MoE)"), ("qwen3_moe_30b_a3b", "MoE"),
-    ("internvl2_2b", "frontend"), ("hubert_xlarge", "frontend")])
+    ("deepseek_v2_lite_16b", "MLA"), ("internvl2_2b", "frontend"),
+    ("hubert_xlarge", "frontend")])
 def test_unported_parts_raise(arch, needle):
     with pytest.raises(NotImplementedError, match=f"{needle}.*ROADMAP"):
         TM.init_model(torch.Generator().manual_seed(0),

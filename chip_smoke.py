@@ -41,7 +41,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    within 1e-3 + 2^-7 |ref|; the float32 state within 2e-4 + 1e-5 |ref| in
    every case. ``flash_attention`` also at qwen3-moe-30b-a3b's prefill
    widths, (1, S, 32 heads, 4 kv heads, hd 128) bf16 causal, at each of the
-   eight prompt lengths and at S = 2048, each call on ``flash_fwd_tc``.
+   eight prompt lengths and at S = 2048, each call on ``flash_fwd_tc``; and
+   at deepseek-v2-lite-16b's MLA prefill widths, (1, S, 16, 16, hd 192)
+   causal with v zero-padded from 128 as the model pads it, in bf16 at the
+   eight lengths, 2048 and the tile edges 127, 128 and 129, each on
+   ``flash_fwd_tc`` (1e-3 + 2^-7 |ref|), and in float32 on ``flash_fwd`` at
+   127, 129 and 1024 (3e-5).
 4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
    paper's size, 736 frames of 2048x2048 and 100,000 grid points.
    4b. The streamed and multi-session drivers at 2048x2048:
@@ -60,16 +65,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (benchmarks/paper_figures.py:91-108): microseconds a frame and the
    736-frame time beside the paper's 106 s on 320 cores.
 6. Serving on the card against the CPU at smoke size: zamba2-7b,
-   h2o-danube3-4b, rwkv6-3b and qwen3-moe-30b-a3b smoke configs in
-   float32, the same seed-made weights on both devices; prefill logits and
+   h2o-danube3-4b, rwkv6-3b, qwen3-moe-30b-a3b and deepseek-v2-lite-16b
+   smoke configs in float32, the same seed-made weights on both devices;
+   prefill logits and
    one decode step within 1e-4 relative, and a 4-request ``ServeSession``
    with identical token ids.
 7. Prefill + decode == forward (``inference=True``, the MoE capacity of
    prefill and decode) at full width, float32 on the card, S=1024:
    zamba2-7b at d_model 3584 with 12 layers (2 shared-attention sites),
    rwkv6-3b at d_model 2560 (40 heads of 64) with 4 layers, qwen3-moe at
-   d_model 2048 (128 experts of 768, 32/4 heads of 128) with 4 layers
-   (~14 GB); relative error < 5e-3 (tests/test_serve.py's bound).
+   d_model 2048 (128 experts of 768, 32/4 heads of 128) with 4 layers,
+   deepseek-v2-lite at d_model 2048 (16 MLA heads, latent 512 + rope 64,
+   64 experts of 1408) with 4 layers (1 dense, 3 MoE): the MLA prefill on
+   ``flash_fwd`` at hd 192; relative error < 5e-3 (tests/test_serve.py's
+   bound), MoE configs where nothing is dropped.
 8. The LM main path: ``repro_torch.launch.serve.main``, zamba2-7b at full
    width and depth (81 layers), bf16, random weights from seed 0; 8
    requests with prompts of 256..2048 tokens (numpy seed 0), 32 new tokens
@@ -87,14 +96,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
    128 experts of 768, top 8; 30.5 B parameters in bf16), once the rwkv6
    session is freed: ``flash_attention`` launched 8 x 48 times, every
    launch on ``flash_fwd_tc``, and no other kernel; peak device memory.
+   8d. The same for deepseek-v2-lite-16b at full width and depth (27
+   layers, MLA, 64 experts of 1408, top 6, 2 shared; 15.7 B parameters
+   in bf16), once the qwen3-moe session is freed: ``flash_attention``
+   launched 8 x 27 times at hd 192, every launch on ``flash_fwd_tc``, and
+   no other kernel.
 9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
    paths' shapes (S = L = 2048, bf16; the decay float32; attention at
-   zamba2's (32, 32, 112) and qwen3-moe's (32, 4, 128)), median of 20
+   zamba2's (32, 32, 112), qwen3-moe's (32, 4, 128) and deepseek's (16,
+   16, 192, v padded from 128)), median of 20
    launches by CUDA events after warm-up (the card kept busy while the
    host enqueues, so host launch time is not counted), beside each one's
    bound, its plain version, for attention
    ``torch.nn.functional.scaled_dot_product_attention`` (with
-   ``enable_gqa=True`` at qwen3-moe's shape; the port never calls it),
+   ``enable_gqa=True`` at qwen3-moe's shape, on the unpadded q/k (192) and
+   v (128) at deepseek's, naming the backend it picked; the port never
+   calls it),
    and for each the CUDA-core kernel on the same bf16 inputs
    (the earlier design). ``rwkv6_wkv`` prints two bounds: its products at
    the tensor-core rate (as the scan's), its ``bound_ms``, and every
@@ -102,10 +119,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``[time]`` line only; and the device time of each of its three launches
    (``torch.profiler``).
 
-Each main path (4, 4b, 8, 8b and 8c) runs with every launch count set to 0
-just before and read just after. The last three lines of standard output are the
-card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and
-``{"ok": true, "device": {...}}``.
+Each main path (4, 4b, 8, 8b, 8c and 8d) runs with every launch count set
+to 0 just before and read just after. The last three lines of standard
+output are the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line
+and ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import ctypes
@@ -279,6 +296,8 @@ WKV_CHECKS = [
 ]
 PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
 QWEN_FLASH = (1, 2048, 32, 4, 128, True, 0)      # qwen3-moe-30b-a3b prefill
+DEEPSEEK_FLASH = (1, 2048, 16, 16, 192, True, 0)  # deepseek-v2-lite MLA
+MLA_V = 128                    # deepseek's v width, zero-padded to 192
 PATH_SCAN = (1, 2048, 112, 64, 1, 64, 128)
 PATH_WKV = (1, 2048, 40, 64, 32)
 FLASH_ATOL = {"float32": 3e-5, "bfloat16": 1e-3}
@@ -290,15 +309,19 @@ STATE_RTOL = 1e-5              # of |ref|: float32 at the path's widths
 
 def path_checks(lengths):
     """The LM main paths' kernel shapes at each of their prompt lengths;
-    qwen3-moe's attention also at S = 2048."""
+    qwen3-moe's and deepseek's attention also at S = 2048, deepseek's also
+    at the 128-row tile's edges."""
     *fw, causal, win = PATH_FLASH
     *qw, _, _ = QWEN_FLASH
+    *dw, _, _ = DEEPSEEK_FLASH
     B, _, H, P, G, N, chunk = PATH_SCAN
     Bw, _, Hw, Nw, cw = PATH_WKV
     return ([((fw[0], n, *fw[2:], causal, win), ("bfloat16",))
              for n in lengths],
             [(qw[0], n, *qw[2:], causal, win)
              for n in list(lengths) + [QWEN_FLASH[1]]],
+            [(dw[0], n, *dw[2:], causal, win)
+             for n in list(lengths) + [DEEPSEEK_FLASH[1], 127, 128, 129]],
             [((B, n, H, P, G, N, chunk), ("bfloat16",)) for n in lengths],
             [((Bw, n, Hw, Nw, cw), ("bfloat16",), "path") for n in lengths])
 
@@ -309,6 +332,14 @@ def flash_inputs(np, torch, shape, dtype, dev, seed=0):
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to(dev).to(getattr(torch, dtype))
             for s in [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)]]
+
+
+def mla_flash_inputs(np, torch, shape, dtype, dev, seed=0):
+    """q, k, v at deepseek's MLA width with v zero-padded from ``MLA_V``
+    columns, as ``models/attention.py::mla_flash`` pads it."""
+    q, k, v = flash_inputs(np, torch, shape, dtype, dev, seed=seed)
+    v[..., MLA_V:] = 0
+    return q, k, v
 
 
 def scan_inputs(np, torch, shape, dtype, dev, seed=0):
@@ -420,7 +451,8 @@ def check_lm_kernels(np, torch, dev, lengths):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_scan as ms
     from repro_torch.kernels import rwkv6_wkv as wk
-    flash_path, qwen_path, scan_path, wkv_path = path_checks(lengths)
+    flash_path, qwen_path, mla_path, scan_path, wkv_path = path_checks(
+        lengths)
     errs = {"flash_attention": 0.0, "mamba2_scan": 0.0, "rwkv6_wkv": 0.0}
     n = 0
     for (*shape, causal, win), dtypes in FLASH_CHECKS + flash_path:
@@ -440,6 +472,27 @@ def check_lm_kernels(np, torch, dev, lengths):
           f"bf16 causal, S = {', '.join(str(s[1]) for s in qwen_path)}: "
           f"each on flash_fwd_tc, == plain version within 1e-3 + 2^-7 |ref| "
           f"(max |diff| {qerr:.3g})", flush=True)
+    derr = 0.0
+    for n, (*shape, causal, win) in enumerate(mla_path):
+        q, k, v = mla_flash_inputs(np, torch, shape, "bfloat16", dev,
+                                   seed=600 + n)
+        derr = max(derr, flash_err(torch, fa, q, k, v, causal, win, tc=True))
+    ferr = 0.0
+    for n, S in enumerate((127, 129, 1024)):
+        shape = (1, S, *DEEPSEEK_FLASH[2:5])
+        q, k, v = mla_flash_inputs(np, torch, shape, "float32", dev,
+                                   seed=700 + n)
+        before = fa.flash_attention.launches_tc
+        ferr = max(ferr, flash_err(torch, fa, q, k, v, True, 0))
+        if fa.flash_attention.launches_tc != before:
+            raise AssertionError("float32 at hd 192 took flash_fwd_tc")
+    errs["flash_attention"] = max(errs["flash_attention"], derr, ferr)
+    print(f"[check] flash_attention at deepseek-v2-lite's MLA widths (1, S, "
+          f"16, 16, 192) causal, v zero-padded from {MLA_V}: bf16 at S = "
+          f"{', '.join(str(s[1]) for s in mla_path)}, each on flash_fwd_tc, "
+          f"within 1e-3 + 2^-7 |ref| (max |diff| {derr:.3g}); float32 at S = "
+          f"127, 129, 1024 on flash_fwd within 3e-5 (max |diff| {ferr:.3g})",
+          flush=True)
     n = 0
     for shape, dtypes in SCAN_CHECKS + scan_path:
         for name in dtypes:
@@ -540,7 +593,7 @@ def check_serving_against_cpu(np, torch, dev):
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeSession, prefill_step
     for arch in ("zamba2_7b", "h2o_danube3_4b", "rwkv6_3b",
-                 "qwen3_moe_30b_a3b"):
+                 "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b"):
         cfg = get_smoke_config(arch)
         on = {"cpu": M.init_model(torch.Generator().manual_seed(0), cfg)}
         on["cuda"] = copy.deepcopy(on["cpu"]).to(dev)
@@ -641,7 +694,8 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
             served_err = prefill_decode_vs_forward()
         finally:
             restore()
-        forward = log[:n_layers]               # the forward's layers first
+        n_moe = n_layers - cfg.moe.first_k_dense   # layers that log
+        forward = log[:n_moe]                  # the forward's layers first
         dropped = sum(d for _, _, d in forward)
         if not (served_err < 5e-3 or dropped):
             raise AssertionError(f"{cfg.name}: prefill + decode vs forward "
@@ -651,7 +705,7 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
                 f"{served_err:.3g}, the forward's busiest expert took "
                 f"{max(n for _, n, _ in forward)} of {S + 1} tokens (C = "
                 f"{forward[0][0]}) and the last token was dropped in "
-                f"{dropped} of {n_layers} layers, so not held there")
+                f"{dropped} of {n_moe} MoE layers, so not held there")
         moe.INFERENCE_CAPACITY_FACTOR = cfg.moe.num_experts / cfg.moe.top_k
         try:
             err = prefill_decode_vs_forward()
@@ -769,6 +823,15 @@ def kernel_times(torch, fn, prefix, calls=10):
     return out
 
 
+def sdpa_backend(torch, *args, **kwargs):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    arguments, by the dispatcher's own rule (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+    names = {int(m.value): n for n, m in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(*args, **kwargs)),
+                     "unknown")
+
+
 def time_lm_kernels(np, torch, dev):
     """Phase 9: each kernel at the path's shape, beside its bound, its plain
     version and (attention) the library call. Returns {name: fields}."""
@@ -821,6 +884,34 @@ def time_lm_kernels(np, torch, dev):
         bytes=n_bytes, ops_ms=ops / BF16_OPS_PER_S * 1e3, rate="989 TFLOP/s",
         cuda_core_ms=core_ms)
     del q, k, v, o
+    # deepseek-v2-lite's MLA prefill shape: q and k 192 wide, v padded from
+    # 128 as the model pads it; SDPA on the unpadded v
+    *shape, causal, win = DEEPSEEK_FLASH
+    B, S, H, KV, hd = shape
+    q, k, v = mla_flash_inputs(np, torch, shape, "bfloat16", dev, seed=97)
+    err = flash_err(torch, fa, q, k, v, causal, win, tc=True)
+    ms_k = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=20)
+    plain = time_ms(torch, lambda: fa.reference(q, k, v), reps=5)
+    qt, kt = q.transpose(1, 2), k.transpose(1, 2)
+    vt = v[..., :MLA_V].transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = time_ms(torch, sdpa, reps=20)
+    backend = sdpa_backend(torch, qt, kt, vt, is_causal=True)
+    o = torch.empty_like(q)
+    core = cuda_core_kernel(torch, fa, B, S, H, KV, hd, hd ** -0.5, 1, 0)
+    core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
+                                          v.data_ptr(), o.data_ptr()),
+                      reps=20)
+    # the algorithm's work: q.k over 192 and p.v over v's own 128, 2 each
+    # (not the padded columns or the P_lo pass); q, k, v and o read or
+    # written once, v and o at 128
+    ops = 2 * (hd + MLA_V) * H * B * S * (S + 1) // 2
+    n_bytes = 2 * B * S * (H * hd + KV * hd + KV * MLA_V + H * MLA_V)
+    out["flash_attention_deepseek_v2_lite"] = dict(
+        err=err, ms=ms_k, plain_ms=plain, library_ms=lib, library=backend,
+        ops=ops, bytes=n_bytes, ops_ms=ops / BF16_OPS_PER_S * 1e3,
+        rate="989 TFLOP/s", cuda_core_ms=core_ms)
+    del q, k, v, o, qt, kt, vt
     B, L, H, P, G, N, chunk = PATH_SCAN
     x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
                                    seed=99)
@@ -886,7 +977,9 @@ def time_lm_kernels(np, torch, dev):
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention"
-                    f"{', enable_gqa' if 'qwen3' in name else ''})")
+                    f"{', enable_gqa' if 'qwen3' in name else ''}"
+                    + (f", v {MLA_V} wide, backend {r['library']}"
+                       if "library" in r else "") + ")")
         core = f"; the CUDA-core kernel on the same inputs " \
                f"{r['cuda_core_ms']:.4f} ms"
         if "fp32_rate_bound_ms" in r:
@@ -950,10 +1043,12 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     for name, p in libs.items():
         for line in ptxas_summary(p.with_suffix(".log")):
             print(f"[ptxas] {name}: {line}")
-    tc_smem = {"flash_fwd_tc, hd 112": _build.bind(
-        "flash_attention", "flash_attention_tc_smem_bytes",
-        [ctypes.c_int])(112), "ssd_scan_tc": _build.bind(
-        "mamba2_scan", "mamba2_scan_tc_smem_bytes", [])()}
+    fa_smem = _build.bind("flash_attention", "flash_attention_tc_smem_bytes",
+                          [ctypes.c_int])
+    tc_smem = {"flash_fwd_tc, hd 112": fa_smem(112),
+               "flash_fwd_tc, hd 192": fa_smem(192),
+               "ssd_scan_tc": _build.bind(
+                   "mamba2_scan", "mamba2_scan_tc_smem_bytes", [])()}
     wkv_smem = _build.bind("rwkv6_wkv", "rwkv6_wkv_tc_smem_bytes",
                            [ctypes.c_int, ctypes.c_int])
     tc_smem["wkv6_tc_walk, chunk 32"] = wkv_smem(0, 32)
@@ -1092,13 +1187,15 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     check_full_width_prefill_decode(np, torch, dev, "zamba2_7b", 12)
     check_full_width_prefill_decode(np, torch, dev, "rwkv6_3b", 4)
     check_full_width_prefill_decode(np, torch, dev, "qwen3_moe_30b_a3b", 4)
+    check_full_width_prefill_decode(np, torch, dev, "deepseek_v2_lite_16b", 4)
     gc.collect()
     torch.cuda.empty_cache()
 
     def serve_main_path(arch, want):
         """One LM main path at full width and depth, its launch counts set
         to 0 just before and read just after; ``want(cfg)`` gives the counts
-        it must show. Returns the counts and those of the tensor-core
+        it must show, every launch of a kernel with a tensor-core variant
+        on that variant. Returns the counts and those of the tensor-core
         kernels."""
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1119,6 +1216,11 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         if counts != want(cfg, n_req):
             raise AssertionError(f"the {cfg.name} path launched {counts}, "
                                  f"expected {want(cfg, n_req)}")
+        print(f"[lm] tensor-core launches on the {cfg.name} path: "
+              f"{json.dumps(tc)}", flush=True)
+        if any(n != counts[name] for name, n in tc.items()):
+            raise AssertionError(f"the {cfg.name} path: {tc} of {counts} "
+                                 f"launches on the tensor-core kernels")
         if sorted(p["tokens"] for p in ph["prefill"]) != sorted(
                 len(p) for p in prompts):
             raise AssertionError(f"the {cfg.name} path served other prompt "
@@ -1139,45 +1241,34 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "hedm_reduce": 0, "flash_attention": n * (cfg.n_layers
                                                   // cfg.attn_every),
         "mamba2_scan": n * cfg.n_layers, "rwkv6_wkv": 0})
-    # every K2 and K3 launch of the zamba2 path on the tensor-core kernels
-    print(f"[lm] tensor-core launches on the zamba2 path: "
-          f"{json.dumps(lm_tc)}", flush=True)
-    for name in ("flash_attention", "mamba2_scan"):
-        n = lm_tc[name]
-        if n != lm_launches[name]:
-            raise AssertionError(f"{name}: {n} of {lm_launches[name]} "
-                                 f"launches on the tensor-core kernel")
     # 8b. rwkv6-3b serving at full width and depth, the zamba2 session freed
     rw_launches, rw_tc = serve_main_path("rwkv6-3b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": 0, "mamba2_scan": 0,
         "rwkv6_wkv": n * cfg.n_layers})
     lm_launches["rwkv6_wkv"] = rw_launches["rwkv6_wkv"]
     lm_tc["rwkv6_wkv"] = rw_tc["rwkv6_wkv"]
-    # every K4 launch of the rwkv6 path on the tensor-core kernel
-    print(f"[lm] tensor-core launches on the rwkv6 path: "
-          f"{lm_tc['rwkv6_wkv']} of {lm_launches['rwkv6_wkv']}", flush=True)
-    if lm_tc["rwkv6_wkv"] != lm_launches["rwkv6_wkv"]:
-        raise AssertionError(f"rwkv6_wkv: {lm_tc['rwkv6_wkv']} of "
-                             f"{lm_launches['rwkv6_wkv']} launches on the "
-                             f"tensor-core kernel")
     # 8c. qwen3-moe-30b-a3b serving at full width and depth, the rwkv6
     # session freed
     qw_launches, qw_tc = serve_main_path("qwen3-moe-30b-a3b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": n * cfg.n_layers,
         "mamba2_scan": 0, "rwkv6_wkv": 0})
-    print(f"[lm] tensor-core launches on the qwen3-moe path: "
-          f"{qw_tc['flash_attention']} of {qw_launches['flash_attention']}",
-          flush=True)
-    if qw_tc["flash_attention"] != qw_launches["flash_attention"]:
-        raise AssertionError(f"flash_attention: {qw_tc['flash_attention']} "
-                             f"of {qw_launches['flash_attention']} qwen3-moe "
-                             f"launches on the tensor-core kernel")
-    # the kernels line counts the launches of both attention paths
-    lm_launches["flash_attention"] += qw_launches["flash_attention"]
-    lm_tc["flash_attention"] += qw_tc["flash_attention"]
+    # 8d. deepseek-v2-lite-16b serving at full width and depth, the
+    # qwen3-moe session freed: MLA prefill on K2 at hd 192
+    ds_launches, ds_tc = serve_main_path(
+        "deepseek-v2-lite-16b", lambda cfg, n: {
+            "hedm_reduce": 0, "flash_attention": n * cfg.n_layers,
+            "mamba2_scan": 0, "rwkv6_wkv": 0})
+    # the kernels line counts the launches of the three attention paths
+    for n, n_tc in ((qw_launches, qw_tc), (ds_launches, ds_tc)):
+        lm_launches["flash_attention"] += n["flash_attention"]
+        lm_tc["flash_attention"] += n_tc["flash_attention"]
 
     # 9. the LM kernels at the path's shapes
     timed = time_lm_kernels(np, torch, dev)
+    timed["flash_attention_qwen3_moe"]["launches"] = \
+        qw_launches["flash_attention"]
+    timed["flash_attention_deepseek_v2_lite"]["launches"] = \
+        ds_launches["flash_attention"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
 
     kernels = [{
@@ -1200,13 +1291,16 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
             "launches": lm_launches[name],
             "launches_tc": lm_tc[name], "cuda_core_ms": r["cuda_core_ms"],
             **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {}),
-            **({"at_qwen3_moe_shape": {
-                k: timed["flash_attention_qwen3_moe"][k] for k in (
+            **({f"at_{shape}_shape": {
+                k: timed[f"flash_attention_{shape}"][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "cuda_core_ms", "err")}}
+                    "cuda_core_ms", "err", "launches", "library")
+                if k in timed[f"flash_attention_{shape}"]}
+                for shape in ("qwen3_moe", "deepseek_v2_lite")}
                if name == "flash_attention" else {}),
             "max_abs_err": max(errs[name], r["err"], *(
-                [timed["flash_attention_qwen3_moe"]["err"]]
+                [timed[f"flash_attention_{shape}"]["err"]
+                 for shape in ("qwen3_moe", "deepseek_v2_lite")]
                 if name == "flash_attention" else [])), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -17,10 +17,16 @@
 // 0.030 ms at the H100's 989 TFLOP/s bf16 tensor-core rate, against 58.7 MB
 // of q, k, v and o (0.018 ms at 3.35 TB/s).
 //
+// Head dims up to 192, the Pallas kernel's domain on the paths that use it:
+// deepseek-v2-lite's MLA prefill runs q and k 192 wide (128 decompressed +
+// 64 rope) and v zero-padded from 128 to 192, since the TPU kernel, and so
+// this one, takes one head dim for q, k and v. The padded columns cost a
+// third of P V; a P V over v's own width is later work.
+//
 // Two kernels; the wrapper (kernels/flash_attention.py) picks one by a stated
 // rule, and neither falls back to the other.
 //
-// flash_fwd_tc, bf16 with hd % 8 == 0 and hd <= 128: the tensor cores.
+// flash_fwd_tc, bf16 with hd % 8 == 0 and hd <= 192: the tensor cores.
 //   * A block takes 128 query rows of one query head: two consumer
 //     warpgroups of 64 rows each and one producer warp. The producer loads Q
 //     once and K/V tiles of 64 keys through a ring of 3 stages with TMA
@@ -38,10 +44,14 @@
 //     emulates both), so the P V products cost twice the algorithm's.
 //   * Within a warpgroup, S of the next tile and P V of this one are in
 //     flight together, and the next softmax overlaps P V.
-//   * Head dims: hd is zero-padded to 64 or 128 columns in shared memory by
-//     TMA's out-of-bounds fill (boxes of 64 columns); the products run over
-//     hd rounded up to 64, 112, 120 or 128 (a wgmma N); the TMA store of O
-//     writes only hd columns and the rows < S.
+//   * Head dims: hd is zero-padded to 64, 128 or 192 columns in shared
+//     memory by TMA's out-of-bounds fill (boxes of 64 columns); the products
+//     run over hd rounded up to 64, 112, 120, 128 or 192 (a wgmma N); the
+//     TMA store of O writes only hd columns and the rows < S. At 192 a
+//     block holds Q (48 KB) and 3 stages of K and V (48 KB each): 193 KB of
+//     the 227 KB it may opt into, and O takes 96 fp32 registers a thread:
+//     there the producer is a whole warpgroup, which gives its registers to
+//     the consumers with setmaxnreg (40 and 232 a thread).
 //   * Causal and window: each warpgroup loops only over the tiles its rows
 //     see, masks only the tiles that cross an edge, and waits for and
 //     releases the rest unread; blocks are launched longest rows first.
@@ -55,6 +65,8 @@
 //   * one block per (batch, kv head, tile of 64 rows of the grouped query
 //     matrix); a tile is 64/G query positions times the G query heads of the
 //     kv head, so every K/V tile is read from HBM once for all G heads;
+//   * hd up to 128 or, with 6 float4 of the output a row pair and thread in
+//     place of 4, up to 192 (two instances of the kernel);
 //   * the kv loop runs only over the key range the tile's rows can see
 //     (causal upper end, window lower end): fully masked tiles are skipped,
 //     not masked (the TPU kernel's :41-47);
@@ -76,7 +88,7 @@ namespace {
 constexpr int ROWS = 64;      // rows of the grouped query matrix per block
 constexpr int BK = 32;        // keys per K/V tile
 constexpr int THREADS = 256;  // 32 row pairs x 8 lanes
-constexpr int MAX_HD = 128;
+constexpr int MAX_HD = 192;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -124,8 +136,9 @@ size_t smem_bytes(int hd) {
 }
 
 // grid (tiles, KV, B); row r of a tile is position p0 + r / G of query head
-// kvh * G + r % G.
-template <typename T>
+// kvh * G + r % G. A thread owns output columns 4 (tx + 8 j), j < NJ: hd up
+// to 32 NJ.
+template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int S, int H,
@@ -168,11 +181,11 @@ __global__ void __launch_bounds__(THREADS)
     pos[i] = p0 + row[i] / G;
   }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float4 acc[2][4];
+  float4 acc[2][NJ];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int k0 = lo; k0 < hi; k0 += BK) {
     __syncthreads();  // the previous tile's P.V is done with Ks, Vs, Ps
@@ -235,7 +248,7 @@ __global__ void __launch_bounds__(THREADS)
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         acc[i][j].x *= alpha;
         acc[i][j].y *= alpha;
         acc[i][j].z *= alpha;
@@ -248,7 +261,7 @@ __global__ void __launch_bounds__(THREADS)
       const float pa = Ps[row[0] * (BK + 1) + kk];
       const float pb = Ps[row[1] * (BK + 1) + kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int c4 = tx + 8 * j;
         if (c4 < hd4) {
           const float4 vv4 = Vs[kk * hd4 + c4];
@@ -266,7 +279,7 @@ __global__ void __launch_bounds__(THREADS)
     T* dst = o + (((size_t)b * S + pos[i]) * H + h) * hd;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int c4 = tx + 8 * j;
       const float e[4] = {acc[i][j].x, acc[i][j].y, acc[i][j].z, acc[i][j].w};
 #pragma unroll
@@ -278,6 +291,23 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename T, int NJ>
+int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
+              int S, int H, int KV, int hd, float scale, int causal,
+              int window, void* stream) {
+  const int pos_per_tile = ROWS / (H / KV);
+  const size_t smem = smem_bytes(hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + pos_per_tile - 1) / pos_per_tile, KV, B);
+  flash_fwd<T, NJ><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KV, hd,
+      pos_per_tile, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KV, int hd, float scale, int causal, int window,
@@ -285,27 +315,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || H / KV > ROWS ||
       hd <= 0 || hd > MAX_HD || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  const int pos_per_tile = ROWS / (H / KV);
-  const size_t smem = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + pos_per_tile - 1) / pos_per_tile, KV, B);
-  flash_fwd<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KV, hd,
-      pos_per_tile, scale, causal, window);
-  return (int)cudaGetLastError();
+  if (hd <= 128)
+    return launch_nj<T, 4>(q, k, v, o, B, S, H, KV, hd, scale, causal,
+                           window, stream);
+  return launch_nj<T, 6>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
+                         stream);
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 kernel on wgmma + TMA. grid (H, B, ceil(S / BM)), 288 threads:
-// warpgroups 0 and 1 consume (64 query rows each), warp 8 produces.
+// The bf16 kernel on wgmma + TMA. grid (H, B, ceil(S / BM)), 288 threads
+// (384 at HDN 192): warpgroups 0 and 1 consume (64 query rows each), warp 8
+// produces.
 namespace tc {
 
 constexpr int BM = 128;            // query rows a block
 constexpr int BN = 64;             // keys a K/V tile
 constexpr int STAGES = 3;          // K/V tiles in flight
-constexpr int THREADS = 2 * 128 + 32;
+// two consumer warpgroups and one producer warp; at HDN 192 a whole
+// producer warpgroup, so that setmaxnreg (which acts on whole warpgroups)
+// can move its registers to the consumers: O's 96 fp32 registers a thread
+// do not fit the 168 that 9 warps leave each, where ptxas spills and
+// serializes the wgmmas
+template <int HDN>
+constexpr int threads() {
+  return HDN > 128 ? 3 * 128 : 2 * 128 + 32;
+}
+constexpr int PRODUCER_REGS = 40;    // 256 x 232 + 128 x 40 <= 384 x 168
+constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory, from a 1024-byte boundary (the 128-byte swizzle repeats
@@ -313,10 +349,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 // V [NH][BN][64]), bf16, each [rows][64] block as TMA's SWIZZLE_128B lays it
 // out; NH = HDP / 64 column blocks of the head dim zero-padded to HDP. Then
 // the mbarriers. HDN, the head dim the products run over, is hd rounded up
-// to 64, 112, 120 or 128 (a wgmma N; S = Q K^T takes ceil(HDN / 16) steps).
+// to 64, 112, 120, 128 or 192 (a wgmma N; S = Q K^T takes ceil(HDN / 16)
+// steps).
 template <int HDN>
 struct Plan {
-  static constexpr int HDP = HDN <= 64 ? 64 : 128;
+  static constexpr int HDP = HDN <= 64 ? 64 : HDN <= 128 ? 128 : 192;
   static constexpr int NH = HDP / 64;
   static constexpr int Q_BYTES = NH * BM * 128;
   static constexpr int KV_BYTES = NH * BN * 128;  // one of K, V
@@ -555,6 +592,53 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // O += P V, N = the padded head dim, from registers P and MN-major V
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
@@ -563,6 +647,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
   if constexpr (N == 112) wgmma_rs_n112(d, a, db, 1);
   if constexpr (N == 120) wgmma_rs_n120(d, a, db, 1);
   if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  if constexpr (N == 192) wgmma_rs_n192(d, a, db, 1);
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
@@ -640,7 +725,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[32],
 }
 
 template <int HDN>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(threads<HDN>(), 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
@@ -679,9 +764,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  if (warp == 8) {
+  if (warp >= 8) {
     // producer: Q once, then K and V tiles through the ring
-    if (lane == 0) {
+    if constexpr (HDN > 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          PRODUCER_REGS));
+    if (warp == 8 && lane == 0) {
       mbar_expect_tx(bar_q, PL::Q_BYTES);
       for (int c = 0; c < NH; ++c)
         tma_load(sQ + c * BM * 128, &tm_q, 64 * c, h, q0, b, bar_q);
@@ -704,6 +792,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     return;
   }
 
+  if constexpr (HDN > 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
   // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows
   // r0 and r0 + 8 (g = lane / 4), and columns 8 j + 2u, + 1 of each n8
   // block j of the wgmma accumulators (u = lane % 4)
@@ -897,7 +988,8 @@ int launch_tc_hd(const void* q, const void* k, const void* v, void* o, int B,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, (S + tc::BM - 1) / tc::BM);
-  tc::flash_fwd_tc<HDN><<<grid, tc::THREADS, smem, (cudaStream_t)stream>>>(
+  tc::flash_fwd_tc<HDN><<<grid, tc::threads<HDN>(), smem,
+                          (cudaStream_t)stream>>>(
       mq, mk, mv, mo, S, H, KV, scale * tc::LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
@@ -917,7 +1009,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   if (hd <= 64) return run(std::integral_constant<int, 64>());
   if (hd <= 112) return run(std::integral_constant<int, 112>());
   if (hd <= 120) return run(std::integral_constant<int, 120>());
-  return run(std::integral_constant<int, 128>());
+  if (hd <= 128) return run(std::integral_constant<int, 128>());
+  return run(std::integral_constant<int, 192>());
 }
 
 }  // namespace
@@ -948,7 +1041,9 @@ int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
 
 // dynamic shared memory of a flash_fwd_tc block for head dim hd, in bytes
 int flash_attention_tc_smem_bytes(int hd) {
-  return hd <= 64 ? tc::Plan<64>::SMEM : tc::Plan<128>::SMEM;
+  return hd <= 64    ? tc::Plan<64>::SMEM
+         : hd <= 128 ? tc::Plan<128>::SMEM
+                     : tc::Plan<192>::SMEM;
 }
 
 const char* flash_attention_error_string(int err) {

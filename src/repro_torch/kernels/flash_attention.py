@@ -12,16 +12,19 @@ accumulation in fp32, masked entries at -1e30, the row sum clamped at
 ``csrc/flash_attention.cu`` (built for sm_90a at first use, see
 `repro_torch.kernels._build`) or raises; the rule (:func:`on_tensor_cores`):
 
-* bfloat16 with hd % 8 == 0, hd <= 128 and q, k, v on 16-byte boundaries
+* bfloat16 with hd % 8 == 0, hd <= 192 and q, k, v on 16-byte boundaries
   (TMA's row strides and addresses) -> ``flash_fwd_tc``, on ``wgmma`` with
   TMA loads, 128 query rows of one head a block;
 * everything else (float32, whose 3e-5 bound the tensor cores cannot hold;
   bfloat16 with another hd or off those boundaries) -> ``flash_fwd``, on
   the fp32 CUDA cores, 64 rows of the grouped query matrix a block.
 
-No kernel falls back to the other or to :func:`reference`: a failed build
-or launch raises. ``flash_attention.launches`` counts kernel launches of
-both, ``flash_attention.launches_tc`` those of the tensor-core kernel.
+Both take hd up to 192, the widest head the paths give it (deepseek-v2's
+MLA prefill: q and k 192 wide, v zero-padded to 192 by its caller). No
+kernel falls back to the other or to :func:`reference`: a failed build or
+launch, or hd > 192, raises. ``flash_attention.launches`` counts kernel
+launches of both, ``flash_attention.launches_tc`` those of the tensor-core
+kernel.
 
 The TPU kernel's ``block_q``/``block_k`` sized VMEM tiles and ``interpret``
 chose Pallas' interpreter; the card's tiles are fixed by its shared memory,
@@ -39,7 +42,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192
 MAX_GROUP = 64                       # query heads per kv head: rows per tile
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
@@ -106,7 +109,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device -> (B,S,H,hd) in q's type on that device.
 
     A CUDA input launches a kernel on the current stream, the one
-    :func:`on_tensor_cores` names (contiguous tensors, hd <= 128 and, on the
+    :func:`on_tensor_cores` names (contiguous tensors, hd <= 192 and, on the
     CUDA cores, at most 64 query heads per kv head; anything else raises); a
     CPU input runs :func:`reference`."""
     _check(q, k, v)
@@ -146,7 +149,7 @@ flash_attention.launches_tc = 0
 
 def on_tensor_cores(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> bool:
-    """The dispatch rule: bfloat16 with hd % 8 == 0 and hd <= 128 and q, k,
+    """The dispatch rule: bfloat16 with hd % 8 == 0 and hd <= 192 and q, k,
     v on 16-byte boundaries go to the tensor-core kernel; the rest to the
     CUDA-core one."""
     hd = q.shape[3]

@@ -7,17 +7,26 @@ seed), 32 new tokens each, on 4 slots of a 4096-token cache. ``--arch
 rwkv6-3b`` serves rwkv6-3b the same way; its state per slot is O(1), so
 the capacity does not bound it. ``--arch qwen3-moe-30b-a3b`` serves the
 MoE model (48 layers, 128 experts of 768, top 8; 30.5 B parameters, 61.1
-GB in bf16) the same way; one 80 GB card holds it whole.
+GB in bf16) the same way; one 80 GB card holds it whole. ``--arch
+deepseek-v2-lite-16b`` serves MLA attention (16 heads, q and k 192 wide, a
+latent cache of 512 + 64 per token) over 64 experts of 1408, top 6, with 2
+shared experts and a dense first layer (27 layers; 15.7 B parameters, 31.4
+GB in bf16).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu --prompt-len 8 24 --max-new 4 --capacity 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu --prompt-len 8 24 --max-new 4 --capacity 64
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --smoke --device cpu --prompt-len 8 24 \
+        --max-new 4 --capacity 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --smoke --device cpu --prompt-len 8 24 \
         --max-new 4 --capacity 64
 """
 from __future__ import annotations
@@ -121,8 +130,9 @@ def main(arch: str = "zamba2-7b", smoke: bool = False, requests: int = 8,
 def cli() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="zamba2-7b",
-                    help="zamba2-7b, rwkv6-3b, qwen3-moe-30b-a3b, or another "
-                         "ported dense-GQA config")
+                    help="zamba2-7b, rwkv6-3b, qwen3-moe-30b-a3b, "
+                         "deepseek-v2-lite-16b, or another ported dense-GQA "
+                         "config")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config of the same family")
     ap.add_argument("--requests", type=int, default=8)

@@ -247,6 +247,63 @@ def test_flash_attention_qwen3_moe_shape_bf16(card, B, S, H, KV, hd, causal,
     assert_close(out, ref, 1e-3, 2.0 ** -7)
 
 
+#: deepseek-v2-lite's MLA prefill widths (16 query heads, 16 kv heads, q
+#: and k 192 wide, v zero-padded from 128 as the model pads it) at the eight
+#: prompt lengths of its serving path, 2048 and the 128-row tile's edges
+DEEPSEEK_FLASH_SHAPES = [(1, S, 16, 16, 192, True, 0)
+                         for S in (1781, 1398, 1172, 739, 807, 329, 390, 285,
+                                   2048, 127, 128, 129)]
+
+
+def _mla_inputs(card, dtype, S):
+    q, k, v = (torch.from_numpy(a).to(card).to(dtype)
+               for a in flash_inputs(1, S, 16, 16, 192, seed=S + 192))
+    v[..., 128:] = 0
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,win", DEEPSEEK_FLASH_SHAPES)
+def test_flash_attention_deepseek_shape_bf16(card, B, S, H, KV, hd, causal,
+                                             win):
+    """bf16 at hd 192 on the tensor-core kernel, within 1e-3 + 2^-7 |ref|
+    of the plain version in float32; the padded columns stay 0."""
+    q, k, v = _mla_inputs(card, torch.bfloat16, S)
+    before = fa.flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=causal, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before + 1
+    ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
+                       scale=192 ** -0.5)
+    assert_close(out, ref, 1e-3, 2.0 ** -7)
+    assert not out[..., 128:].any()
+
+
+@pytest.mark.parametrize("S", [127, 129, 1024])
+def test_flash_attention_deepseek_shape_float32(card, S):
+    """float32 at hd 192 on the CUDA-core kernel, within 3e-5."""
+    q, k, v = _mla_inputs(card, torch.float32, S)
+    n, n_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=True, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_tc) == \
+        (n + 1, n_tc)
+    ref = fa.reference(q, k, v, causal=True, scale=192 ** -0.5)
+    assert_close(out, ref, 3e-5, 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [200, 256])
+def test_flash_attention_rejects_head_dims_past_192(card, dtype, hd):
+    """No kernel takes hd > 192, and nothing falls back: the wrapper
+    raises and launches nothing."""
+    q, k, v = (torch.from_numpy(a).to(card).to(getattr(torch, dtype))
+               for a in flash_inputs(1, 16, 2, 2, hd))
+    n = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="hd <= 192"):
+        flash_attention(q, k, v)
+    assert fa.flash_attention.launches == n
+
+
 @pytest.mark.parametrize("shape", EDGE_SCAN_SHAPES, ids=str)
 def test_mamba2_scan_tile_edges_bf16(card, shape):
     """bf16 on the tensor-core kernel against the plain version run in
@@ -289,15 +346,23 @@ def test_mamba2_scan_float32_matches_float64_recurrence(card, shape):
 
 @pytest.mark.parametrize("dtype,hd,tc", [
     ("bfloat16", 112, True), ("bfloat16", 120, True), ("bfloat16", 64, True),
-    ("bfloat16", 100, False), ("float32", 112, False)])
+    ("bfloat16", 192, True), ("bfloat16", 100, False),
+    ("float32", 112, False), ("float32", 192, False),
+    ("bfloat16", 200, False)])
 def test_flash_attention_dispatch(card, dtype, hd, tc):
-    """bf16 with hd % 8 == 0 and hd <= 128 goes to the tensor-core kernel;
-    float32 and any other hd to the CUDA-core one. Both count in
-    ``launches``, the first also in ``launches_tc``."""
+    """bf16 with hd % 8 == 0 and hd <= 192 goes to the tensor-core kernel;
+    float32 and any other hd up to 192 to the CUDA-core one. Both count in
+    ``launches``, the first also in ``launches_tc``. Past 192 neither
+    kernel runs: the wrapper raises."""
     q, k, v = (torch.from_numpy(a).to(card).to(getattr(torch, dtype))
                for a in flash_inputs(1, 96, 4, 2, hd, seed=hd))
     n, n_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
     assert fa.on_tensor_cores(q, k, v) == tc
+    if hd > fa.MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match="hd <= 192"):
+            flash_attention(q, k, v)
+        assert fa.flash_attention.launches == n
+        return
     flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == n + 1
@@ -439,7 +504,8 @@ def test_lm_kernels_reject_non_contiguous_input(card):
 #: the kernel each smoke config's prefill launches
 ARCH_KERNEL = {"zamba2_7b": fa.flash_attention, "h2o_danube3_4b":
                fa.flash_attention, "rwkv6_3b": wk.rwkv6_wkv,
-               "qwen3_moe_30b_a3b": fa.flash_attention}
+               "qwen3_moe_30b_a3b": fa.flash_attention,
+               "deepseek_v2_lite_16b": fa.flash_attention}
 
 
 @pytest.mark.parametrize("arch", sorted(ARCH_KERNEL))
@@ -478,6 +544,13 @@ def test_qwen3_moe_session_on_card_matches_cpu(card):
     """The same for the qwen3-moe smoke config (its MoE FFN in every
     layer)."""
     _session_on_card_matches_cpu(card, "qwen3_moe_30b_a3b")
+
+
+def test_deepseek_session_on_card_matches_cpu(card):
+    """The same for the deepseek-v2-lite smoke config (MLA prefill through
+    the flash-attention kernel, the absorbed decode over the latent
+    caches)."""
+    _session_on_card_matches_cpu(card, "deepseek_v2_lite_16b")
 
 
 def _session_on_card_matches_cpu(card, arch):

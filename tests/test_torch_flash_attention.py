@@ -40,6 +40,28 @@ def test_plain_version_matches_oracle(B, S, H, KV, hd, causal, win, dtype):
                                atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pad_v", [False, True], ids=["v192", "v128-padded"])
+def test_plain_version_matches_oracle_at_mla_width(dtype, pad_v):
+    """deepseek-v2-lite's MLA prefill width, 16 heads of 192 causal, at the
+    scale 192^-0.5; with v zero-padded from 128 as the model pads it, the
+    padded output columns are exactly 0."""
+    q, k, v = flash_inputs(1, 77, 16, 16, 192, seed=192)
+    if pad_v:
+        v[..., 128:] = 0
+    arrays = (q, k, v)
+    ref = jax_reference(*(jnp.asarray(a, dtype) for a in arrays),
+                        causal=True, window=0, scale=192 ** -0.5)
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    out = flash_attention(*ts, causal=True, scale=192 ** -0.5)
+    assert out.shape == (1, 77, 16, 192)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=0,
+                               atol=TOL[dtype])
+    if pad_v:
+        assert not out[..., 128:].any()
+
+
 def test_explicit_scale_matches_oracle():
     arrays = flash_inputs(1, 64, 4, 2, 32, seed=3)
     ref = jax_reference(*map(jnp.asarray, arrays), causal=True, window=0,
@@ -58,8 +80,10 @@ def test_first_causal_row_is_its_own_value():
 
 
 #: zamba2's attention widths (32 heads of 112) at ragged lengths: 285
-#: leaves 29 rows in the last 128-row tile, 129 one row past a tile
-PATH_WIDTH_FLASH = [(1, S, 32, 32, 112) for S in (285, 129)]
+#: leaves 29 rows in the last 128-row tile, 129 one row past a tile; then
+#: deepseek-v2-lite's MLA prefill widths (16 heads of 192)
+PATH_WIDTH_FLASH = [(1, S, 32, 32, 112) for S in (285, 129)] + [
+    (1, 285, 16, 16, 192)]
 
 
 def _tc_excess(shape, split):

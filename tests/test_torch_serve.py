@@ -38,7 +38,8 @@ def _serve(sess, reqs):
 
 
 @pytest.mark.parametrize("arch", ["zamba2_7b", "h2o_danube3_4b", "rwkv6_3b",
-                                  "qwen3_moe_30b_a3b"])
+                                  "qwen3_moe_30b_a3b",
+                                  "deepseek_v2_lite_16b"])
 def test_session_matches_reference_session(arch):
     jcfg = jax_registry.get_smoke_config(arch)
     cfg = registry.get_smoke_config(arch)
@@ -59,7 +60,8 @@ def test_session_matches_reference_session(arch):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b",
+                                  "deepseek-v2-lite-16b"])
 def test_launcher_serves_smoke_config_on_cpu(arch):
     out = launch.main(arch=arch, smoke=True, requests=3, slots=2,
                       prompt_len=(6, 20), max_new=3, capacity=32,

@@ -46,7 +46,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    causal with v zero-padded from 128 as the model pads it, in bf16 at the
    eight lengths, 2048 and the tile edges 127, 128 and 129, each on
    ``flash_fwd_tc`` (1e-3 + 2^-7 |ref|), and in float32 on ``flash_fwd`` at
-   127, 129 and 1024 (3e-5).
+   127, 129 and 1024 (3e-5). ``flash_attention`` also at internvl2-2b's
+   prefill widths, (1, S, 16 heads, 8 kv heads, hd 128) bf16 causal, at
+   256 image tokens + each of the eight served text lengths, at 256 + 1024
+   (phase 10's prefill) and at 2048;
+   and at hubert-xlarge's encoder widths, (1, S, 16, 16, hd 80)
+   non-causal, bf16 at 127, 128, 129, 1024 and 2048, each bf16 call on
+   ``flash_fwd_tc`` (1e-3 + 2^-7 |ref|), and float32 at 2048 on
+   ``flash_fwd`` (3e-5).
 4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
    paper's size, 736 frames of 2048x2048 and 100,000 grid points.
    4b. The streamed and multi-session drivers at 2048x2048:
@@ -69,7 +76,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    smoke configs in float32, the same seed-made weights on both devices;
    prefill logits and
    one decode step within 1e-4 relative, and a 4-request ``ServeSession``
-   with identical token ids.
+   with identical token ids. Then internvl2-2b's and hubert-xlarge's smoke
+   configs (the vision and audio frontends) forward, logits within 1e-4;
+   and two ``make_train_step`` steps of qwen3-32b's smoke config (2
+   microbatches, remat): the losses, AdamW's m and v (element-wise) and
+   every updated parameter (normwise) within 1e-4 relative of the CPU run.
 7. Prefill + decode == forward (``inference=True``, the MoE capacity of
    prefill and decode) at full width, float32 on the card, S=1024:
    zamba2-7b at d_model 3584 with 12 layers (2 shared-attention sites),
@@ -77,7 +88,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    d_model 2048 (128 experts of 768, 32/4 heads of 128) with 4 layers,
    deepseek-v2-lite at d_model 2048 (16 MLA heads, latent 512 + rope 64,
    64 experts of 1408) with 4 layers (1 dense, 3 MoE): the MLA prefill on
-   ``flash_fwd`` at hd 192; relative error < 5e-3 (tests/test_serve.py's
+   ``flash_fwd`` at hd 192; internvl2-2b at d_model 2048 with 4 layers,
+   256 image + 768 text tokens; relative error < 5e-3 (tests/test_serve.py's
    bound), MoE configs where nothing is dropped.
 8. The LM main path: ``repro_torch.launch.serve.main``, zamba2-7b at full
    width and depth (81 layers), bf16, random weights from seed 0; 8
@@ -117,10 +129,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the tensor-core rate (as the scan's), its ``bound_ms``, and every
    operation at the fp32 rate, the earlier design's bound, in the
    ``[time]`` line only; and the device time of each of its three launches
-   (``torch.profiler``).
+   (``torch.profiler``). K2 also at internvl2-2b's (1, 2048, 16, 8, 128)
+   causal (SDPA with ``enable_gqa``) and hubert-xlarge's (1, 2048, 16, 16,
+   80) non-causal (SDPA naming its backend).
+10. The frontends' inference on K2 at full width and depth, bf16, random
+   weights from seed 0: internvl2-2b ``prefill_step`` of 256 image + 1024
+   text tokens then 16 greedy decode steps (TTFT, decode tokens/s), then
+   hubert-xlarge ``forward`` on (1, 2048, 512) features, once the first
+   model is freed; 24 and 48 K2 launches, all on ``flash_fwd_tc``, no other
+   kernel, every logit finite, peak device memory.
+11. Training at full width and depth in bf16 on the plain mixers (the
+   kernels have no backward): internvl2-2b, then hubert-xlarge once the
+   first is freed; a batch of 4 (internvl2: 256 image embeddings from a
+   numpy seed and 768 text tokens from a ``StagedLoader`` over token shards
+   staged collectively on the simulator, its staging report printed;
+   hubert: 1024 frames of 512 features, labels from 504 clusters),
+   microbatches 2, remat on, the reference launcher's ``OptConfig`` (peak
+   1e-3, warmup 2), 8 steps on the repeated batch: the loss falls, every
+   loss and grad norm finite, no K2, K3 or K4 launch. Step seconds,
+   tokens/s, peak memory and 6 N tokens / step time (N without the token
+   table, a lookup) as a share of 989 TFLOP/s; one more step traced by
+   ``torch.profiler`` (busy share, top five kernels).
+   11b. ``repro_torch.launch.train.main`` on the card: smoke qwen3-32b, 20
+   steps, checkpoints every 10, a failure injected before step 15: one
+   restart, the state restored at step 10 equal byte for byte to the one
+   saved, no kernel launched.
 
-Each main path (4, 4b, 8, 8b, 8c and 8d) runs with every launch count set
-to 0 just before and read just after. The last three lines of standard
+Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11 and 11b) runs with every
+launch count set to 0 just before and read just after. The last three lines of standard
 output are the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -298,6 +334,15 @@ PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
 QWEN_FLASH = (1, 2048, 32, 4, 128, True, 0)      # qwen3-moe-30b-a3b prefill
 DEEPSEEK_FLASH = (1, 2048, 16, 16, 192, True, 0)  # deepseek-v2-lite MLA
 MLA_V = 128                    # deepseek's v width, zero-padded to 192
+INTERNVL_FLASH = (1, 2048, 16, 8, 128, True, 0)   # internvl2-2b prefill
+HUBERT_FLASH = (1, 2048, 16, 16, 80, False, 0)    # hubert-xlarge encoder
+IMAGE_TOKENS = 256             # internvl2-2b's image prefix
+PREFILL_TEXT = 1024            # phase 10's internvl2-2b text tokens
+#: K2's timed shapes beside zamba2's, as keys of the kernels line
+FLASH_SHAPES_TIMED = ("qwen3_moe", "deepseek_v2_lite", "internvl2", "hubert")
+#: hubert's K2 checks (S, type): the 128-row tile's edges, 1024, 2048
+HUBERT_CHECKS = [(127, "bfloat16"), (128, "bfloat16"), (129, "bfloat16"),
+                 (1024, "bfloat16"), (2048, "bfloat16"), (2048, "float32")]
 PATH_SCAN = (1, 2048, 112, 64, 1, 64, 128)
 PATH_WKV = (1, 2048, 40, 64, 32)
 FLASH_ATOL = {"float32": 3e-5, "bfloat16": 1e-3}
@@ -493,6 +538,35 @@ def check_lm_kernels(np, torch, dev, lengths):
           f"within 1e-3 + 2^-7 |ref| (max |diff| {derr:.3g}); float32 at S = "
           f"127, 129, 1024 on flash_fwd within 3e-5 (max |diff| {ferr:.3g})",
           flush=True)
+    # internvl2-2b: the image prefix ahead of each served text length
+    ierr = 0.0
+    internvl = ([IMAGE_TOKENS + n for n in lengths]
+                + [IMAGE_TOKENS + PREFILL_TEXT, INTERNVL_FLASH[1]])
+    for n, S in enumerate(internvl):
+        q, k, v = flash_inputs(np, torch, (1, S, *INTERNVL_FLASH[2:5]),
+                               "bfloat16", dev, seed=800 + n)
+        ierr = max(ierr, flash_err(torch, fa, q, k, v, True, 0, tc=True))
+    # hubert-xlarge: bidirectional, hd 80; float32 on flash_fwd
+    herr = {"bfloat16": 0.0, "float32": 0.0}
+    for n, (S, name) in enumerate(HUBERT_CHECKS):
+        q, k, v = flash_inputs(np, torch, (1, S, *HUBERT_FLASH[2:5]), name,
+                               dev, seed=900 + n)
+        before = fa.flash_attention.launches_tc
+        herr[name] = max(herr[name], flash_err(
+            torch, fa, q, k, v, False, 0, tc=name == "bfloat16"))
+        if name == "float32" and fa.flash_attention.launches_tc != before:
+            raise AssertionError("float32 at hd 80 took flash_fwd_tc")
+    errs["flash_attention"] = max(errs["flash_attention"], ierr,
+                                  *herr.values())
+    print(f"[check] flash_attention at internvl2-2b's widths (1, S, 16, 8, "
+          f"128) bf16 causal, S = {IMAGE_TOKENS} image + the served text "
+          f"lengths, phase 10's {IMAGE_TOKENS + PREFILL_TEXT} and 2048 "
+          f"({', '.join(map(str, internvl))}): each on "
+          f"flash_fwd_tc within 1e-3 + 2^-7 |ref| (max |diff| {ierr:.3g}); "
+          f"at hubert-xlarge's (1, S, 16, 16, 80) non-causal: bf16 at S = "
+          f"127, 128, 129, 1024, 2048 on flash_fwd_tc (max |diff| "
+          f"{herr['bfloat16']:.3g}), float32 at 2048 on flash_fwd within "
+          f"3e-5 (max |diff| {herr['float32']:.3g})", flush=True)
     n = 0
     for shape, dtypes in SCAN_CHECKS + scan_path:
         for name in dtypes:
@@ -675,13 +749,20 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
     S = 1024
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, S + 1))).to(dev)
+    image = {}
+    if cfg.frontend.kind == "vision_patches":
+        # the image's P positions come first: S - P text tokens + 1
+        P, feat = cfg.frontend.num_prefix_tokens, cfg.frontend.feature_dim
+        toks = toks[:, P:]
+        image = {"image_embeds": torch.from_numpy(np.random.default_rng(
+            3).standard_normal((2, P, feat)).astype(np.float32)).to(dev)}
 
     def prefill_decode_vs_forward():
         ref = M.logits(params, cfg, M.forward(
-            params, cfg, {"tokens": toks}, inference=True)[:, -1])
-        _, caches = prefill_step(params, cfg, {"tokens": toks[:, :S]},
-                                 capacity=S + 8)
-        dec, _ = M.decode_step(params, cfg, toks[:, S:], caches)
+            params, cfg, {"tokens": toks, **image}, inference=True)[0][:, -1])
+        _, caches = prefill_step(params, cfg, {"tokens": toks[:, :-1],
+                                               **image}, capacity=S + 8)
+        dec, _ = M.decode_step(params, cfg, toks[:, -1:], caches)
         if not torch.isfinite(dec).all():
             raise AssertionError(f"{cfg.name}: non-finite decode logits")
         return rel_err(dec[:, :cfg.vocab], ref[:, :cfg.vocab])
@@ -719,8 +800,9 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
     if not err < 5e-3:
         raise AssertionError(f"full-width prefill + decode vs forward: rel "
                              f"{err} (< 5e-3)")
+    what = (f"{P} image + {S - P} text tokens" if image else f"S={S}")
     print(f"[check] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
-          f"float32, S={S}: prefill + decode vs forward rel {err:.3g} "
+          f"float32, {what}: prefill + decode vs forward rel {err:.3g} "
           f"(< 5e-3){note}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     del params
@@ -735,39 +817,53 @@ def profile_serving(torch, sess, prompts):
     prefills, then one decode step) and for the 4 decode steps after it. The profiler adds host time of its own, so each share
     is a lower bound; the kernel time per step is the number to compare
     with the main path's step times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import Request
     for i, prompt in enumerate(prompts[:sess.B]):
         sess.submit(Request(i, prompt, max_new_tokens=6))
 
     def window(steps):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        def run():
             for _ in range(steps):
                 sess.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ks = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ks) / 1e6
-        top = sorted(ks, key=lambda e: -e.self_device_time_total)[:5]
-        return {"wall_s": wall, "kernel_s": busy, "busy": busy / wall,
-                "kernels": sum(e.count for e in ks),
-                "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
-                        for e in top]}
+        return trace(torch, run)
 
     lens = "+".join(str(len(p)) for p in prompts[:sess.B])
     out = {f"admit_{lens}": window(1), "decode_4_steps": window(4)}
     for name, r in out.items():
-        print(f"[trace] {name}: wall {r['wall_s'] * 1e3:.1f} ms, kernels "
-              f"{r['kernel_s'] * 1e3:.1f} ms in {r['kernels']} launches, "
-              f"busy {r['busy'] * 100:.1f}% (profiled); most time: "
-              + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in r["top"]),
-              flush=True)
+        print_trace(name, r)
     return out
+
+
+def trace(torch, fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity): host wall
+    seconds, the kernels' summed device seconds, their share of the wall
+    time (busy), the launch count and the five kernels that took most
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ks = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ks) / 1e6
+    top = sorted(ks, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_s": wall, "kernel_s": busy, "busy": busy / wall,
+            "kernels": sum(e.count for e in ks),
+            "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def print_trace(name, r):
+    print(f"[trace] {name}: wall {r['wall_s'] * 1e3:.1f} ms, kernels "
+          f"{r['kernel_s'] * 1e3:.1f} ms in {r['kernels']} launches, "
+          f"busy {r['busy'] * 100:.1f}% (profiled); most time: "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in r["top"]),
+          flush=True)
 
 
 def wkv_ops(B, L, H, N, chunk):
@@ -882,7 +978,7 @@ def time_lm_kernels(np, torch, dev):
     out["flash_attention_qwen3_moe"] = dict(
         err=err, ms=ms_k, plain_ms=plain, library_ms=lib, ops=ops,
         bytes=n_bytes, ops_ms=ops / BF16_OPS_PER_S * 1e3, rate="989 TFLOP/s",
-        cuda_core_ms=core_ms)
+        cuda_core_ms=core_ms, gqa=True)
     del q, k, v, o
     # deepseek-v2-lite's MLA prefill shape: q and k 192 wide, v padded from
     # 128 as the model pads it; SDPA on the unpadded v
@@ -912,6 +1008,38 @@ def time_lm_kernels(np, torch, dev):
         ops=ops, bytes=n_bytes, ops_ms=ops / BF16_OPS_PER_S * 1e3,
         rate="989 TFLOP/s", cuda_core_ms=core_ms)
     del q, k, v, o, qt, kt, vt
+    # internvl2-2b's prefill shape (16 query heads over 8 kv heads of 128)
+    # and hubert-xlarge's encoder (16/16 heads of 80, no tile skipped)
+    for key, (*shape, causal, win), gqa in (
+            ("flash_attention_internvl2", INTERNVL_FLASH, True),
+            ("flash_attention_hubert", HUBERT_FLASH, False)):
+        B, S, H, KV, hd = shape
+        q, k, v = flash_inputs(np, torch, shape, "bfloat16", dev, seed=96)
+        err = flash_err(torch, fa, q, k, v, causal, win, tc=True)
+        ms_k = time_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=causal), reps=20)
+        plain = time_ms(torch, lambda: fa.reference(q, k, v, causal=causal),
+                        reps=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa), reps=20)
+        o = torch.empty_like(q)
+        core = cuda_core_kernel(torch, fa, B, S, H, KV, hd, hd ** -0.5,
+                                int(causal), 0)
+        core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
+                                              v.data_ptr(), o.data_ptr()),
+                          reps=20)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        ops = 4 * hd * H * B * pairs
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        out[key] = dict(err=err, ms=ms_k, plain_ms=plain, library_ms=lib,
+                        ops=ops, bytes=n_bytes,
+                        ops_ms=ops / BF16_OPS_PER_S * 1e3,
+                        rate="989 TFLOP/s", cuda_core_ms=core_ms, gqa=gqa)
+        if not gqa:
+            out[key]["library"] = sdpa_backend(torch, qt, kt, vt,
+                                               is_causal=causal)
+        del q, k, v, o, qt, kt, vt
     B, L, H, P, G, N, chunk = PATH_SCAN
     x, dt, A, Bm, Cm = scan_inputs(np, torch, PATH_SCAN, "bfloat16", dev,
                                    seed=99)
@@ -977,8 +1105,9 @@ def time_lm_kernels(np, torch, dev):
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (scaled_dot_product_attention"
-                    f"{', enable_gqa' if 'qwen3' in name else ''}"
-                    + (f", v {MLA_V} wide, backend {r['library']}"
+                    f"{', enable_gqa' if r.get('gqa') else ''}"
+                    + (f"{f', v {MLA_V} wide' if 'deepseek' in name else ''}"
+                       f", backend {r['library']}"
                        if "library" in r else "") + ")")
         core = f"; the CUDA-core kernel on the same inputs " \
                f"{r['cuda_core_ms']:.4f} ms"
@@ -995,6 +1124,357 @@ def time_lm_kernels(np, torch, dev):
               f"version {r['plain_ms']:.4f} ms; library {lib}; max |diff| "
               f"{r['err']:.3g}{core}", flush=True)
     return out
+
+
+def frontend_inputs(np, torch, cfg, B, S, dev, seed):
+    """A vision config's (B, S) text tokens and (B, P, feat) image
+    embeddings, or an audio config's (B, S, feat) features, from numpy's
+    generator at ``seed``: the features float32, as the reference takes
+    them."""
+    rng = np.random.default_rng(seed)
+    fe = cfg.frontend
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    if fe.kind == "audio_frames":
+        return {"features": f32(rng.standard_normal((B, S, fe.feature_dim)))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+            .to(dev),
+            "image_embeds": f32(rng.standard_normal(
+                (B, fe.num_prefix_tokens, fe.feature_dim)))}
+
+
+def check_frontends_and_training_against_cpu(np, torch, dev):
+    """Phase 6, continued: internvl2-2b's and hubert-xlarge's smoke configs
+    forward on the card (K2) and on the CPU, float32, logits within 1e-4;
+    then qwen3-32b's smoke config on both from the same weights: the first
+    batch's grads, every leaf within 1e-4 (max |diff| over max |ref|), and
+    two ``make_train_step`` steps, the losses within 1e-4, AdamW's m and v
+    every leaf within 1e-4 (max |diff| over max |ref|: they are linear in
+    the grads) and every updated parameter within 1e-4 normwise (||diff||
+    over ||ref||).
+
+    The parameters are held normwise, not element by element: Adam's first
+    steps move an element by lr g / (|g| + eps), so where |g| is near eps
+    (1e-8) an absolute grad difference of 1e-9, float32 rounding in another
+    summation order, moves the update by a tenth of lr. Two correct float32
+    runs then differ by a few 1e-4 of the largest element (an H100 against
+    the CPU: 5.35e-4 in ``embed.table``; float32 against float64 on the
+    CPU: 2.52e-4 in layer 0's ``wq``), while the norm of the difference
+    stays near 1e-5 (tests/test_torch_train.py holds float32 against
+    float64 so)."""
+    import copy
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer, train_step
+    for arch in ("internvl2_2b", "hubert_xlarge"):
+        cfg = get_smoke_config(arch)
+        on = {"cpu": M.init_model(torch.Generator().manual_seed(0), cfg)}
+        on["card"] = copy.deepcopy(on["cpu"]).to(dev)
+        out = {}
+        for where, params in on.items():
+            inputs = frontend_inputs(np, torch, cfg, 2, 40,
+                                     params.embed.table.device, seed=1)
+            x, _ = M.forward(params, cfg, inputs)
+            out[where] = M.logits(params, cfg, x)[..., :cfg.vocab].cpu()
+        err = rel_err(out["card"], out["cpu"])
+        if not err < 1e-4:
+            raise AssertionError(f"{arch} smoke: card vs CPU forward logits "
+                                 f"rel {err} (< 1e-4)")
+        print(f"[check] {cfg.name} smoke ({cfg.frontend.kind}), card vs CPU: "
+              f"forward logits rel {err:.3g} (< 1e-4)", flush=True)
+    cfg = get_smoke_config("qwen3_32b")
+    opt = optimizer.OptConfig(total_steps=10, warmup_steps=2, peak_lr=1e-3)
+    step = train_step.make_train_step(
+        cfg, ShapeConfig("s", "train", 32, 4, num_microbatches=2), opt)
+    cpu, _ = train_step.init_train_state(torch.Generator().manual_seed(0),
+                                         cfg, opt)
+    models = {"cpu": cpu, "card": copy.deepcopy(cpu).to(dev)}
+    states = {k: optimizer.init_opt_state(m) for k, m in models.items()}
+    losses = {k: [] for k in models}
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab, (4, 32)))
+    grads = {}
+    for k, m in models.items():
+        t = toks.to(m.embed.table.device)
+        grads[k], _, _ = train_step.grads_and_loss(
+            m, cfg, {"tokens": t, "labels": t},
+            ShapeConfig("s", "train", 32, 4, num_microbatches=2))
+    grad_err = max(rel_err(grads["card"][n].cpu(), g)
+                   for n, g in grads["cpu"].items())
+    for i in range(2):
+        toks = torch.from_numpy(np.random.default_rng(10 + i).integers(
+            0, cfg.vocab, (4, 32)))
+        for k, m in models.items():
+            t = toks.to(m.embed.table.device)
+            _, states[k], met = step(m, states[k], {"tokens": t, "labels": t})
+            losses[k].append(float(met["loss"]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                       losses["cpu"]))
+    pairs = [(p.detach().cpu(), q.detach()) for (_, p), (_, q)
+             in zip(models["card"].named_parameters(),
+                    models["cpu"].named_parameters())]
+    param_err = max(float((a - b).norm() / b.norm()) for a, b in pairs)
+    param_max = max(rel_err(a, b) for a, b in pairs)
+    moment_err = max(rel_err(states["card"][k][n].cpu(), t)
+                     for k in ("m", "v") for n, t in states["cpu"][k].items())
+    if not (grad_err < 1e-4 and loss_err < 1e-4 and moment_err < 1e-4
+            and param_err < 1e-4):
+        raise AssertionError(f"qwen3-32b smoke training, card vs CPU: grads "
+                             f"rel {grad_err}, loss rel {loss_err}, m and v "
+                             f"rel {moment_err}, parameters normwise rel "
+                             f"{param_err} (< 1e-4)")
+    print(f"[check] {cfg.name} smoke, card vs CPU: the first batch's grads "
+          f"within rel {grad_err:.3g} (< 1e-4, every leaf); 2 "
+          f"make_train_step steps (2 microbatches, remat): losses "
+          f"{[round(x, 6) for x in losses['card']]}, rel {loss_err:.3g}; "
+          f"m and v within rel {moment_err:.3g} (< 1e-4, every leaf); "
+          f"every updated parameter within {param_err:.3g} normwise (< "
+          f"1e-4; element-wise max |diff| / max |ref| {param_max:.3g})",
+          flush=True)
+
+
+def frontend_inference(np, torch, dev, zero_counts, counted, tensor_core):
+    """Phase 10: the frontends' inference on K2 at full width and depth,
+    bf16, random weights from seed 0, each model freed before the next.
+    internvl2-2b: ``prefill_step`` of 256 image + 1024 text tokens, then 16
+    greedy decode steps; hubert-xlarge: ``forward`` on (1, 2048, 512)
+    features. Each with its launch counts set to 0 just before and read
+    just after: 24 and 48 K2 launches, all on ``flash_fwd_tc``, no other
+    kernel; every logit finite. Returns {arch: K2 launches}."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import greedy_sample, prefill_step
+    launches = {}
+    for arch, text in (("internvl2_2b", PREFILL_TEXT),
+                       ("hubert_xlarge", HUBERT_FLASH[1])):
+        cfg = get_config(arch)
+        want = cfg.n_layers                  # one K2 launch a layer
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        inputs = frontend_inputs(np, torch, cfg, 1, text, dev, seed=4)
+        zero_counts()
+        t0 = time.perf_counter()
+        if cfg.causal:
+            P = cfg.frontend.num_prefix_tokens
+            S = P + text
+            logits, caches = prefill_step(params, cfg, inputs,
+                                          capacity=S + 16)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            finite = bool(torch.isfinite(logits).all())
+            tok = greedy_sample(logits)[:, None].long()
+            steps = []
+            for _ in range(16):
+                t1 = time.perf_counter()
+                logits, caches = M.decode_step(params, cfg, tok, caches)
+                tok = greedy_sample(logits)[:, None].long()
+                finite &= bool(torch.isfinite(logits).all())
+                steps.append(time.perf_counter() - t1)
+            step_s = statistics.median(steps[1:])
+            timing = (f"TTFT {first_s:.4f} s ({S} positions: {P} image + "
+                      f"{text} text); 16 decode steps at batch 1, each "
+                      f"ending in a host read of its logits: the first "
+                      f"{steps[0]:.4f} s, the median of the rest "
+                      f"{step_s:.4f} s ({1 / step_s:.2f} tokens/s)")
+        else:
+            with torch.no_grad():
+                x, _ = M.forward(params, cfg, inputs)
+                logits = M.logits(params, cfg, x)[..., :cfg.vocab]
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(logits).all())
+            timing = (f"forward {time.perf_counter() - t0:.4f} s over "
+                      f"{text} frames")
+        counts = {fn.__name__: fn.launches for fn in counted}
+        tc = tensor_core[0].launches_tc
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = sum(p.numel() for p in params.parameters())
+        print(f"[frontends] {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {n / 1e9:.3f} B parameters, bf16): init "
+              f"{init_s:.2f} s, {timing}; launches {json.dumps(counts)}, "
+              f"{tc} on flash_fwd_tc; peak device memory {peak:.2f} GB",
+              flush=True)
+        if counts != {"hedm_reduce": 0, "flash_attention": want,
+                      "mamba2_scan": 0, "rwkv6_wkv": 0} or tc != want:
+            raise AssertionError(f"{cfg.name}: launches {counts}, {tc} on "
+                                 f"the tensor cores; expected {want} K2")
+        if not finite:
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        launches[arch] = want
+        del params, logits, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_full_width(np, torch, dev, arch, zero_counts, counted):
+    """Phase 11: 8 ``make_train_step`` steps of ``arch`` at full width and
+    depth in bf16 on one repeated batch of 4 (microbatches 2, remat on, the
+    reference launcher's ``OptConfig``: peak 1e-3, warmup 2). internvl2-2b:
+    256 image embeddings (numpy seed) and 768 text tokens from a
+    ``StagedLoader`` over token shards staged collectively on the
+    simulator; hubert-xlarge: 1024 frames of 512 features and labels from
+    its 504 clusters. The loss falls, every loss and grad norm is finite,
+    and no K2, K3 or K4 launches inside the steps (counts set to 0 just
+    before, read just after). Then one more step under ``torch.profiler``.
+    Returns the step's numbers."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fabric import BGQ, Fabric
+    from repro_torch.data.pipeline import StagedLoader, write_token_shards
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = get_config(arch)
+    B, steps = 4, 8
+    rng = np.random.default_rng(5)
+    if cfg.frontend.kind == "vision_patches":
+        P = cfg.frontend.num_prefix_tokens
+        text = 1024 - P
+        fabric = Fabric(n_hosts=8, constants=BGQ)
+        write_token_shards(fabric, n_shards=8, tokens_per_shard=1 << 16,
+                           vocab=cfg.vocab, seed=5)
+        loader = StagedLoader(fabric, "data/*.bin", batch=B, seq=text)
+        rep = loader.stage(collective=True)
+        batch = next(loader.batches(seed=5, device=dev))
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, P, cfg.frontend.feature_dim)).astype(np.float32)).to(dev)
+        print(f"[train] {cfg.name} data: 8 shards of 65,536 tokens staged "
+              f"collectively onto 8 simulated BG/Q hosts ({rep.mode}): "
+              f"{rep.total_bytes} bytes, FS read {rep.fs_bytes} bytes, "
+              f"interconnect {rep.net_bytes} bytes; simulated stage "
+              f"{rep.stage_time:.6f} s + comm {rep.comm_time:.6f} s + "
+              f"write {rep.write_time:.6f} s + broadcast "
+              f"{rep.broadcast_time:.6f} s = {loader.staging_time:.6f} s",
+              flush=True)
+        S = P + text
+    else:
+        S = 1024
+        batch = {"features": torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.frontend.feature_dim)).astype(np.float32)).to(dev),
+            "labels": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)}
+    opt = OptConfig(total_steps=max(steps, 10),
+                    warmup_steps=max(2, steps // 10), peak_lr=1e-3)
+    shape = ShapeConfig("train", "train", S, B, num_microbatches=2,
+                        remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    # N of 6 N tokens: every parameter that multiplies, so not the token
+    # table, a lookup (the output head does multiply; tied, it is the table)
+    n_mul = n - (0 if cfg.tie_embeddings else params.embed.table.numel())
+    step = make_train_step(cfg, shape, opt)
+    zero_counts()
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    counts = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(times[1:])
+    tokens = B * S
+    mfu = 6 * n_mul * tokens / step_s / BF16_OPS_PER_S
+    print(f"[train] {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n / 1e9:.3f} B parameters, bf16, AdamW fp32 "
+          f"state): init {init_s:.2f} s; {steps} steps of {B} x {S} "
+          f"positions (2 microbatches, remat): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}; step times "
+          f"{[round(x, 3) for x in times]} s (median after the first "
+          f"{step_s:.4f} s, {tokens / step_s:.0f} tokens/s, 6 N tokens / "
+          f"step with N = {n_mul / 1e9:.3f} B, the token table left out, "
+          f"= {mfu * 100:.2f}% of 989 TFLOP/s); launches "
+          f"{json.dumps(counts)}; peak device memory {peak:.2f} GB",
+          flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"{cfg.name} training launched {counts}: the "
+                             f"training path must take the plain mixers")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name} training: losses {losses}, grad "
+                             f"norms {norms}: not finite, or not falling")
+    r = trace(torch, lambda: step(params, state, batch))
+    print_trace(f"{cfg.name} train step", r)
+    out = {"step_s": step_s, "tokens_per_s": tokens / step_s,
+           "mfu": mfu, "peak_gb": peak, "losses": losses, "trace": r,
+           "params": n}
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_trainer_restart(np, torch, dev, zero_counts, counted):
+    """Phase 11b: ``repro_torch.launch.train.main`` on the card, smoke
+    qwen3-32b, 20 steps, checkpoints every 10, a failure injected before
+    step 15: one restart, and the state restored at step 10 equal byte for
+    byte to the one saved there; no kernel launched."""
+    import tempfile
+    from repro_torch.checkpoint.store import CheckpointStore, _flatten
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.driver import TrainDriver
+    saved, restored = {}, {}
+    real_save, real_restore = CheckpointStore.save_async, TrainDriver._restore
+
+    def host(tree):
+        return {p: t.detach().to("cpu", copy=True)
+                for p, t in _flatten(tree).items()}
+
+    def save_async(self, step, tree, n_shards=8):
+        saved[step] = host(tree)
+        real_save(self, step, tree, n_shards)
+
+    def restore(self, template, step):
+        state = real_restore(self, template, step)
+        restored[step] = host(state)
+        return state
+    CheckpointStore.save_async, TrainDriver._restore = save_async, restore
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="repro_train_") as d:
+            report = launch_train.main(arch="qwen3-32b", smoke=True,
+                                       steps=20, ckpt_dir=d, device=dev,
+                                       fail_at=15)
+    finally:
+        CheckpointStore.save_async, TrainDriver._restore = (real_save,
+                                                            real_restore)
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counted}
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+    same = (sorted(saved.get(10, {})) == sorted(restored.get(10, {}))
+            and all(a.dtype == restored[10][p].dtype
+                    and torch.equal(raw(a), raw(restored[10][p]))
+                    for p, a in saved[10].items()))
+    n_bytes = sum(t.numel() * t.element_size() for t in saved[10].values())
+    print(f"[train] launch.train.main qwen3-32b smoke on the card, 20 steps, "
+          f"a failure before step 15: {report.steps_completed} steps run, "
+          f"{report.restarts} restart, checkpoints {report.checkpoints}, "
+          f"losses {report.losses[0]:.4f} -> {report.losses[-1]:.4f}; the "
+          f"state restored at step 10 ({len(saved[10])} leaves, "
+          f"{n_bytes / 1e6:.1f} MB) {'equals' if same else 'DIFFERS from'} "
+          f"the saved one byte for byte; launches {json.dumps(counts)}; "
+          f"{wall:.2f} s", flush=True)
+    if not (same and report.restarts == 1 and report.checkpoints == [10, 20]
+            and report.steps_completed == 25
+            and np.isfinite(report.losses).all()):
+        raise AssertionError("the trainer's restart did not restore the "
+                             "saved state or did not finish its steps")
+    if any(counts.values()):
+        raise AssertionError(f"the trainer launched {counts}")
+
+
 
 
 def main(n_frames=FRAMES, grid_points=GRID_POINTS):
@@ -1184,10 +1664,12 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     check_serving_against_cpu(np, torch, dev)
+    check_frontends_and_training_against_cpu(np, torch, dev)
     check_full_width_prefill_decode(np, torch, dev, "zamba2_7b", 12)
     check_full_width_prefill_decode(np, torch, dev, "rwkv6_3b", 4)
     check_full_width_prefill_decode(np, torch, dev, "qwen3_moe_30b_a3b", 4)
     check_full_width_prefill_decode(np, torch, dev, "deepseek_v2_lite_16b", 4)
+    check_full_width_prefill_decode(np, torch, dev, "internvl2_2b", 4)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1269,6 +1751,19 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         qw_launches["flash_attention"]
     timed["flash_attention_deepseek_v2_lite"]["launches"] = \
         ds_launches["flash_attention"]
+
+    # 10. the frontends' inference on K2 at full width and depth
+    fe_launches = frontend_inference(np, torch, dev, zero_counts, counted,
+                                     tensor_core)
+    for arch, n in fe_launches.items():
+        timed[f"flash_attention_{arch.split('_')[0]}"]["launches"] = n
+        lm_launches["flash_attention"] += n
+        lm_tc["flash_attention"] += n
+    # 11. training at full width and depth on the plain mixers, then 11b.
+    # the trainer's restart from its checkpoint
+    for arch in ("internvl2_2b", "hubert_xlarge"):
+        train_full_width(np, torch, dev, arch, zero_counts, counted)
+    check_trainer_restart(np, torch, dev, zero_counts, counted)
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
 
     kernels = [{
@@ -1296,11 +1791,11 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "cuda_core_ms", "err", "launches", "library")
                 if k in timed[f"flash_attention_{shape}"]}
-                for shape in ("qwen3_moe", "deepseek_v2_lite")}
+                for shape in FLASH_SHAPES_TIMED}
                if name == "flash_attention" else {}),
             "max_abs_err": max(errs[name], r["err"], *(
                 [timed[f"flash_attention_{shape}"]["err"]
-                 for shape in ("qwen3_moe", "deepseek_v2_lite")]
+                 for shape in FLASH_SHAPES_TIMED]
                 if name == "flash_attention" else [])), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -114,6 +114,20 @@ def bind(name: str, symbol: str, argtypes: Sequence,
     return fn
 
 
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an input of the CUDA
+    kernel ``name`` requires grad. The kernels have no backward and are
+    called through ctypes, so autograd would record nothing: the output
+    would carry no ``grad_fn`` and the gradient would be silently wrong.
+    Training takes the plain mixers instead (``use_kernels=False``)."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} has no backward: a CUDA input requires grad. Call it "
+            f"under torch.no_grad(), or train through the models' plain "
+            f"mixers (use_kernels=False), as loss_fn does")
+
+
 def check(name: str, err: int) -> None:
     """Raise ``RuntimeError`` when a launch of ``csrc/<name>.cu`` returned a
     CUDA error (the library's ``<name>_error_string`` names it)."""

@@ -109,14 +109,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device -> (B,S,H,hd) in q's type on that device.
 
     A CUDA input launches a kernel on the current stream, the one
-    :func:`on_tensor_cores` names (contiguous tensors, hd <= 192 and, on the
-    CUDA cores, at most 64 query heads per kv head; anything else raises); a
-    CPU input runs :func:`reference`."""
+    :func:`on_tensor_cores` names (contiguous tensors, hd <= 192 and, on
+    the CUDA cores, at most 64 query heads per kv head; anything else
+    raises, as does an input that requires grad in grad mode: the kernel
+    has no backward); a CPU input runs :func:`reference`."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
     B, S, H, hd = q.shape

@@ -126,7 +126,8 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     A CUDA input launches a kernel on the current stream, the one
     :func:`on_tensor_cores` names (contiguous tensors, P <= 64, N <= 64,
-    chunk <= 128; anything else raises); a CPU input runs
+    chunk <= 128; anything else raises, as does an input that requires grad
+    in grad mode: the kernel has no backward); a CPU input runs
     :func:`reference`."""
     _check(x, dt, A, Bm, Cm)
     if not 0 < chunk <= MAX_CHUNK:
@@ -135,6 +136,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return reference(x, dt, A, Bm, Cm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    _build.refuse_grad("mamba2_scan", x, dt, A, Bm, Cm)
     if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
         raise ValueError("mamba2_scan needs contiguous inputs")
     B, L, H, P = x.shape

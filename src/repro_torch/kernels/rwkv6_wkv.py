@@ -112,7 +112,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA input launches a kernel on the current stream, the one
     :func:`on_tensor_cores` names (contiguous tensors, N <= 64, chunk <=
-    64; anything else raises); a CPU input runs :func:`reference`."""
+    64; anything else raises, as does an input that requires grad in grad
+    mode: the kernel has no backward); a CPU input runs :func:`reference`."""
     _check(r, k, v, w, u)
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
@@ -120,6 +121,7 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return reference(r, k, v, w, u, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
+    _build.refuse_grad("rwkv6_wkv", r, k, v, w, u)
     if not all(t.is_contiguous() for t in (r, k, v, w, u)):
         raise ValueError("rwkv6_wkv needs contiguous inputs")
     B, L, H, N = r.shape

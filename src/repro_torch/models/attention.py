@@ -19,6 +19,12 @@ of the output (exactly 0) cut off. On the CPU a prompt of
 the reference does. MLA decode is the absorbed form in plain PyTorch, as
 the reference computes it outside Pallas: the cache holds only the latent
 ``c_kv`` and the rope key.
+
+Training (``use_kernels=False``, which ``model.loss_fn`` passes) takes the
+reference's own XLA paths instead, in plain PyTorch: ``grouped_sdpa`` over a
+bias, or ``blocked_grouped_sdpa`` from ``BLOCKED_THRESHOLD`` tokens on; for
+MLA the einsum path (``mla_core``), or ``blocked_mla_core`` from that
+length. The kernels have no backward.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from repro_torch.models.layers import (Params, apply_rope, const, dense_init,
                                        dt, rmsnorm_nohead)
 
 NEG_INF = -1e30
-BLOCKED_THRESHOLD = 8192     # MLA on the CPU: blocked from this length on
+BLOCKED_THRESHOLD = 8192     # plain paths: blocked from this length on
 Q_CHUNK = 1024
 
 
@@ -157,11 +163,63 @@ def _attend(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attention(params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention (prefill). x: (B,S,D)."""
+              positions: torch.Tensor,
+              use_kernels: bool = True) -> torch.Tensor:
+    """Full-sequence attention. x: (B,S,D). Through the kernel op, or with
+    ``use_kernels=False`` (training) the reference's plain paths:
+    ``grouped_sdpa`` over a bias, ``blocked_grouped_sdpa`` from
+    ``BLOCKED_THRESHOLD`` tokens on."""
     if cfg.attention == "mla":
-        return mla_attention(params, cfg, x, positions)
-    return _attend(params, cfg, x, positions)[0]
+        return mla_attention(params, cfg, x, positions, use_kernels)
+    if use_kernels:
+        return _attend(params, cfg, x, positions)[0]
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    win, scale = cfg.sliding_window, hd ** -0.5
+    if S >= BLOCKED_THRESHOLD:
+        out = blocked_grouped_sdpa(q, k, v, causal=cfg.causal, window=win,
+                                   scale=scale)
+    else:
+        out = grouped_sdpa(q, k, v, attention_bias(
+            S, S, causal=cfg.causal, window=win, device=x.device), scale)
+    return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
+
+
+def blocked_grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: int, scale: float,
+                         q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Exact grouped attention one block of ``q_chunk`` queries at a time
+    (the largest divisor of S up to it), with no (S,S) buffer; with a
+    window only the (window + q_chunk)-wide key slab (rounded up to 128) a
+    block is touched, as the reference's scan does. q (B,S,H,hd), k/v
+    (B,S,KV,hd) -> (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qc = min(q_chunk, S)
+    while S % qc:
+        qc -= 1
+    use_slab = window > 0 and (window + qc) < S
+    slab = min(S, ((window + qc + 127) // 128) * 128) if use_slab else S
+    outs = []
+    for q0 in range(0, S, qc):
+        start = min(max(q0 + qc - slab, 0), S - slab) if use_slab else 0
+        k_blk, v_blk = k[:, start:start + slab], v[:, start:start + slab]
+        k_pos = start + torch.arange(slab, device=q.device)
+        q_pos = q0 + torch.arange(qc, device=q.device)
+        ok = torch.ones((qc, slab), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            ok &= k_pos[None, :] > q_pos[:, None] - window
+        bias = torch.where(ok, 0.0, NEG_INF).float()
+        q_blk = q[:, q0:q0 + qc].reshape(B, qc, KV, H // KV, hd)
+        scores = torch.einsum("bskgh,btkh->bkgst", q_blk.float(),
+                              k_blk.float()) * scale
+        probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgst,btkh->bskgh", probs, v_blk)
+                    .reshape(B, qc, H, hd))
+    return torch.cat(outs, dim=1)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
@@ -302,9 +360,12 @@ def _mla_latent(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mla_attend(params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
-    """Prefill MLA with decompressed per-head keys and values; returns the
-    output projection and the latents (c_kv, k_rope) for a cache."""
+                positions: torch.Tensor, use_kernels: bool = True):
+    """Full-sequence MLA with decompressed per-head keys and values; returns
+    the output projection and the latents (c_kv, k_rope) for a cache. The
+    core runs on the kernel op, or with ``use_kernels=False`` on the
+    reference's einsum path (:func:`mla_core`; :func:`blocked_mla_core`
+    from ``BLOCKED_THRESHOLD`` tokens on)."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -313,8 +374,11 @@ def _mla_attend(params, cfg: ModelConfig, x: torch.Tensor,
     k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
     v = (c_kv @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    if x.device.type == "cpu" and S >= BLOCKED_THRESHOLD:
+    if S >= BLOCKED_THRESHOLD and (x.device.type == "cpu"
+                                   or not use_kernels):
         out = blocked_mla_core(q_nope, q_rope, k_nope, k_rope, v, scale)
+    elif not use_kernels:
+        out = mla_core(q_nope, q_rope, k_nope, k_rope, v, scale, cfg.causal)
     else:
         out = mla_flash(q_nope, q_rope, k_nope, k_rope, v, scale,
                         causal=cfg.causal)
@@ -323,9 +387,25 @@ def _mla_attend(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mla_attention(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence MLA (prefill). x: (B,S,D)."""
-    return _mla_attend(params, cfg, x, positions)[0]
+                  positions: torch.Tensor,
+                  use_kernels: bool = True) -> torch.Tensor:
+    """Full-sequence MLA. x: (B,S,D)."""
+    return _mla_attend(params, cfg, x, positions, use_kernels)[0]
+
+
+def mla_core(q_nope, q_rope, k_nope, k_rope, v, scale: float,
+             causal: bool = True) -> torch.Tensor:
+    """The reference's einsum MLA core: scores in fp32 from the nope and
+    rope parts over a (S,S) bias, probabilities rounded to v's type before
+    the product. Shapes as :func:`mla_flash`."""
+    S = q_nope.shape[1]
+    scores = (torch.einsum("bshe,bthe->bhst", q_nope.float(), k_nope.float())
+              + torch.einsum("bshe,bte->bhst", q_rope.float(),
+                             k_rope.float())) * scale
+    bias = attention_bias(S, S, causal=causal, window=0,
+                          device=q_nope.device)
+    probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthe->bshe", probs, v)
 
 
 def mla_flash(q_nope, q_rope, k_nope, k_rope, v, scale: float,

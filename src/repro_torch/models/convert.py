@@ -8,11 +8,19 @@ leading layer axis of ``groups``, ``loras``, ``tail``, ``prefix`` and
 ``layers`` is cut into the port's per-layer modules; a MoE block's experts
 stay stacked (``moe.w_gate``, ``w_up``, ``w_down``), as the port keeps
 them. Every array must land on a parameter of
-the same shape and every parameter must be filled, or it raises.
+the same shape and every parameter must be filled, or it raises. A vision
+or audio config's ``frontend`` parameters land on the model's
+``frontend``.
+
+``params_to_jax(tree)`` is the inverse: the port's model, or a map from its
+parameter names to tensors (its grads, or a leaf group of its optimizer
+state), in the reference's nested numpy layout with the per-layer leaves
+stacked again, so that the two packages' grads and AdamW states compare
+leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -89,3 +97,47 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
         raise KeyError(f"parameters missing from the tree: {missing[:8]}"
                        + (" ..." if len(missing) > 8 else ""))
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stacked(node: Any) -> Any:
+    """A nested dict whose all-digit keys are per-layer lists, with those
+    lists stacked along a new leading axis, leaf by leaf."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        layers = [_stacked(node[str(i)]) for i in range(len(node))]
+        return _stack_trees(layers)
+    return {k: _stacked(v) for k, v in node.items()}
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_jax(tree: Union[nn.Module, Mapping[str, Optional[torch.Tensor]]]
+                  ) -> Dict[str, Any]:
+    """The reference's nested numpy tree of the port's ``tree``: a model
+    (its parameters) or a map from its parameter names (``stack.layers.0.
+    attn.wq``...) to tensors. A ``None`` leaf raises (a parameter the loss
+    does not reach has no grad in PyTorch: fill it with zeros first).
+    bfloat16 comes back as float32: numpy has no bfloat16."""
+    if isinstance(tree, nn.Module):
+        tree = dict(tree.named_parameters())
+    nested: Dict[str, Any] = {}
+    for name, t in tree.items():
+        if t is None:
+            raise ValueError(f"{name}: no tensor (a grad of None is zeros: "
+                             f"fill it before converting)")
+        node = nested
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = _numpy(t)
+    return _stacked(nested)

@@ -5,8 +5,9 @@ parameters carry the reference package's names and layouts (a dense weight
 is ``(in, out)``, as in the JAX parameter tree), plus a function that
 applies it. Parameters are made on an explicit device in an explicit type,
 drawn from a ``torch.Generator`` the caller seeded; with no generator they
-are left uninitialised for `repro_torch.models.convert` to fill. The port
-serves only, so no parameter requires a gradient.
+are left uninitialised for `repro_torch.models.convert` to fill. Every
+parameter is made with ``requires_grad=False``, so serving builds no graph;
+`repro_torch.train.train_step.init_train_state` turns it on for training.
 """
 from __future__ import annotations
 

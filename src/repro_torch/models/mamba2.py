@@ -9,7 +9,10 @@ log-decay a_t = dt_t * A_h with A negative.
     scan goes through `repro_torch.kernels.ops.mamba2_scan` (the
     hand-written kernel on CUDA tensors, its plain version on the CPU). The
     kernel takes any L in chunks of ``cfg.ssm.chunk`` with a short last one;
-    the reference shrinks the chunk to a divisor of L.
+    the reference shrinks the chunk to a divisor of L. With
+    ``use_kernels=False`` (training: the kernel has no backward) the scan is
+    the reference's ``ssd_chunked`` at ``pick_chunk``, as its
+    ``mamba2_block`` runs it.
   * ``ssd_naive`` / ``ssd_chunked``: the reference's two scans in plain
     PyTorch (the recurrence, and the chunked form with its rounding of the
     intra-chunk weights to x's type).
@@ -91,6 +94,14 @@ def ssd_chunked(x, dt_, A, Bm, Cm, h0=None, chunk: int = 128):
     return torch.cat(ys, dim=1).to(x.dtype), h
 
 
+def pick_chunk(L: int, chunk: int) -> int:
+    """Largest chunk size <= ``chunk`` that divides L."""
+    c = min(chunk, L)
+    while L % c:
+        c -= 1
+    return c
+
+
 # ---------------------------------------------------------------------------
 # block
 # ---------------------------------------------------------------------------
@@ -155,10 +166,12 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor
+def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor,
+                   use_kernels: bool = True
                    ) -> Tuple[torch.Tensor, SSMState]:
     """Full-sequence mixer, u (B,L,D) -> (B,L,D), and the SSM state (final
-    h and conv tails) for decode."""
+    h and conv tails) for decode. The scan runs on the kernel op, or with
+    ``use_kernels=False`` as :func:`ssd_chunked`."""
     s = cfg.ssm
     B, L, _ = u.shape
     d_inner, H, G = _dims(cfg)
@@ -171,8 +184,15 @@ def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor
     dt_ = F.softplus((u @ params["in_dt"]).float() + params["dt_bias"])
     x = x.reshape(B, L, H, s.head_dim)
     A = -torch.exp(params["A_log"])
-    y, h = ops.mamba2_scan(x, dt_, A, Bm.reshape(B, L, G, s.d_state),
-                           Cm.reshape(B, L, G, s.d_state), chunk=s.chunk)
+    Bm, Cm = Bm.reshape(B, L, G, s.d_state), Cm.reshape(B, L, G, s.d_state)
+    if use_kernels:
+        y, h = ops.mamba2_scan(x, dt_, A, Bm, Cm, chunk=s.chunk)
+    else:
+        HG = H // G
+        y, h = ssd_chunked(x.reshape(B, L, G, HG, s.head_dim),
+                           dt_.reshape(B, L, G, HG), A.reshape(G, HG), Bm,
+                           Cm, chunk=pick_chunk(L, s.chunk))
+        y = y.reshape(B, L, H, s.head_dim)
     y = y + x * params["D"][None, None, :, None].to(y.dtype)
     y = rmsnorm(params["norm"], y.reshape(B, L, d_inner) * F.silu(z),
                 cfg.norm_eps)
@@ -189,9 +209,10 @@ def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor
     return out, state
 
 
-def mamba2_block(params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
+def mamba2_block(params, cfg: ModelConfig, u: torch.Tensor,
+                 use_kernels: bool = True) -> torch.Tensor:
     """Full-sequence Mamba2 mixer. u: (B,L,D) -> (B,L,D)."""
-    return mamba2_prefill(params, cfg, u)[0]
+    return mamba2_prefill(params, cfg, u, use_kernels)[0]
 
 
 # ---------------------------------------------------------------------------

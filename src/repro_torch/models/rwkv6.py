@@ -11,7 +11,9 @@ with w_t = exp(-exp(w0 + lora_w(x))) in (0,1), data-dependent, float32.
 
   * ``rwkv6_time_mix`` on a whole sequence from a zero state (prefill and
     forward) goes through `repro_torch.kernels.ops.rwkv6_wkv`: the
-    hand-written kernel on CUDA tensors, its plain version on the CPU.
+    hand-written kernel on CUDA tensors, its plain version on the CPU; with
+    ``use_kernels=False`` (training: the kernel has no backward) through
+    ``wkv_chunked``, as the reference's time-mix runs it.
   * ``wkv_naive`` / ``wkv_chunked``: the reference's two forms in plain
     PyTorch, both with an initial state ``s0``. ``wkv_naive`` is the decode
     step; ``wkv_chunked`` keeps the reference's rounding of the intra-chunk
@@ -163,11 +165,12 @@ def _time_mix_inputs(params, x: torch.Tensor, xs: torch.Tensor):
 
 def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
                    x_prev: torch.Tensor, s0: Optional[torch.Tensor] = None,
-                   use_chunked: bool = True
+                   use_chunked: bool = True, use_kernels: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Time-mix. x (B,L,D); x_prev (B,D) the last token of the previous
     segment. Returns (out, s_final, x_last). ``use_chunked`` with no ``s0``
-    is the kernel's call; ``use_chunked=False`` the step recurrence."""
+    is the kernel's call, unless ``use_kernels=False`` asks for
+    :func:`wkv_chunked`; ``use_chunked=False`` the step recurrence."""
     N = cfg.rwkv.head_dim
     B, L, D = x.shape
     H = D // N
@@ -182,9 +185,9 @@ def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     w = torch.exp(-torch.exp(dlog)).reshape(B, L, H, N)  # (0,1) decay, f32
     if not use_chunked:
         out, s_final = wkv_naive(r, k, v, w, params["u"], s0)
-    elif s0 is None:
+    elif s0 is None and use_kernels:
         out, s_final = ops.rwkv6_wkv(r, k, v, w, params["u"])
-    elif x.device.type == "cuda":
+    elif x.device.type == "cuda" and use_kernels:
         raise NotImplementedError(
             "a chunked WKV from a carried state has no kernel: the CUDA "
             "kernel, like the TPU one, starts from a zero state")

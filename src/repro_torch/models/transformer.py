@@ -14,6 +14,13 @@ caches are lists of per-layer caches. Two patterns:
                         followed by the SHARED attention block (weights
                         shared across sites, per-site LoRA deltas on q and
                         k); the remainder layers form a tail.
+
+The full-sequence forward (``stack_forward``) returns the summed MoE aux
+loss beside the hidden states. Its ``use_kernels`` chooses the mixers: the
+kernels (prefill and serving) or the plain counterparts of the reference's
+XLA paths (training, ``use_kernels=False``: the kernels have no backward).
+With ``remat`` every block runs under ``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint`` over its layer scan.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -71,23 +79,25 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
     return Block(cfg, gen, gen.device, use_moe=use_moe)
 
 
-def _ffn(params, cfg: ModelConfig, h: torch.Tensor,
-         inference: bool) -> torch.Tensor:
-    """The block's FFN on its normed input: MoE (its aux loss dropped: the
-    port serves only) or the dense MLP."""
+def _ffn(params, cfg: ModelConfig, h: torch.Tensor, inference: bool
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on its normed input and its aux loss: MoE (a float32
+    scalar), or the dense MLP (None)."""
     if "moe" in params:
-        return moe_mod.moe_ffn(params["moe"], cfg, h, inference=inference)[0]
-    return mlp(params["mlp"], h)
+        return moe_mod.moe_ffn(params["moe"], cfg, h, inference=inference)
+    return mlp(params["mlp"], h), None
 
 
-def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor
+def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor,
+                  use_kernels: bool = True
                   ) -> Tuple[torch.Tensor, rw.RWKVState]:
     """An RWKV6 block over a whole sequence from a zero state, and its decode
     state (the WKV state and the last normed input of each sublayer)."""
     B, L, D = x.shape
     zeros = torch.zeros((B, D), dtype=x.dtype, device=x.device)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    tm, s_final, x_tm = rw.rwkv6_time_mix(params["mixer"], cfg, h, zeros)
+    tm, s_final, x_tm = rw.rwkv6_time_mix(params["mixer"], cfg, h, zeros,
+                                          use_kernels=use_kernels)
     x = x + tm
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
     cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, zeros)
@@ -96,19 +106,25 @@ def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor
 
 
 def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor,
-                  inference: bool = False) -> torch.Tensor:
-    """Full-sequence forward for one block; ``inference`` relaxes a MoE
-    FFN's capacity."""
+                  positions: torch.Tensor, inference: bool = False,
+                  use_kernels: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward for one block: (x, aux loss). ``inference``
+    relaxes a MoE FFN's capacity; ``use_kernels=False`` takes the plain
+    mixers (training)."""
+    zero = torch.zeros((), device=x.device)      # no aux loss
     if cfg.block_kind == "mamba2":
         return x + m2.mamba2_block(params["mixer"], cfg,
-                                   rmsnorm(params["norm"], x, cfg.norm_eps))
+                                   rmsnorm(params["norm"], x, cfg.norm_eps),
+                                   use_kernels), zero
     if cfg.block_kind == "rwkv6":
-        return _rwkv_prefill(params, cfg, x)[0]
+        return _rwkv_prefill(params, cfg, x, use_kernels)[0], zero
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(params["attn"], cfg, h, positions)
-    return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
+    x = x + attn_mod.attention(params["attn"], cfg, h, positions,
+                               use_kernels)
+    out, aux = _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
                     inference)
+    return x + out, zero if aux is None else aux
 
 
 def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
@@ -130,7 +146,7 @@ def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
     out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache)
     x = x + out
     return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
-                    True), cache
+                    True)[0], cache
 
 
 def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
@@ -148,7 +164,7 @@ def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
                                          capacity)
     x = x + out
     return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
-                    True), kv
+                    True)[0], kv
 
 
 # ---------------------------------------------------------------------------
@@ -199,11 +215,12 @@ def _shared_mlp(shared, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def shared_attn_forward(shared, lora, cfg: ModelConfig, x: torch.Tensor,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor,
+                        use_kernels: bool = True) -> torch.Tensor:
     ap = _lora_adjusted_attn_params(shared["attn"], lora)
     h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
-    return _shared_mlp(shared, cfg,
-                       x + attn_mod.attention(ap, cfg, h, positions))
+    return _shared_mlp(shared, cfg, x + attn_mod.attention(
+        ap, cfg, h, positions, use_kernels))
 
 
 def shared_attn_decode(shared, lora, cfg: ModelConfig, x: torch.Tensor,
@@ -289,24 +306,43 @@ def _tail(params) -> List[Block]:
     return list(params["tail"]) if "tail" in params else []
 
 
+def _maybe_remat(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``: its
+    activations are recomputed in backward instead of saved."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def stack_forward(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor,
-                  inference: bool = False) -> torch.Tensor:
-    """Full-sequence forward through all layers; ``inference`` relaxes the
-    MoE capacity."""
+                  positions: torch.Tensor, inference: bool = False,
+                  remat: bool = False, use_kernels: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward through all layers: (x, summed aux loss).
+    ``inference`` relaxes the MoE capacity; ``remat`` checkpoints each block
+    (and each shared-attention site); ``use_kernels=False`` takes the plain
+    mixers (training)."""
+    aux = torch.zeros((), device=x.device)
+
+    def block(b, x):
+        nonlocal aux
+        x, a = _maybe_remat(remat, block_forward, b, cfg, x, positions,
+                            inference, use_kernels)
+        aux = aux + a
+        return x
     if cfg.block_pattern == "zamba_hybrid":
         for group, lora in zip(_site_groups(params, cfg), params["loras"]):
-            for block in group:
-                x = block_forward(block, cfg, x, positions)
-            x = shared_attn_forward(params["shared_attn"], lora, cfg, x,
-                                    positions)
-        for block in _tail(params):
-            x = block_forward(block, cfg, x, positions)
-        return x
+            for b in group:
+                x = block(b, x)
+            x = _maybe_remat(remat, shared_attn_forward, params["shared_attn"],
+                             lora, cfg, x, positions, use_kernels)
+        for b in _tail(params):
+            x = block(b, x)
+        return x, aux
     for _, blocks in _uniform(params):
-        for block in blocks:
-            x = block_forward(block, cfg, x, positions, inference)
-    return x
+        for b in blocks:
+            x = block(b, x)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

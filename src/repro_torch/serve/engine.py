@@ -27,9 +27,12 @@ from repro_torch.models.layers import dt, rmsnorm
 # steps
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def prefill_step(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
                  capacity: int) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
-    """Prefill: inputs -> (last-token logits (B,V) fp32, populated caches)."""
+    """Prefill: inputs -> (last-token logits (B,V) fp32, populated caches).
+    Runs under ``torch.no_grad()``, as :func:`decode_step` does (through
+    ``model.decode_step``): a trainable model served builds no graph."""
     x = M.apply_frontend(params, cfg, inputs).to(dt(cfg.compute_dtype))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,

@@ -605,3 +605,164 @@ def test_service_driver_on_card(card):
         ref = T.pack_reduced(T.reduce_frames(frames, dark, device="cpu"))
         assert all(o[name].tobytes() == ref.tobytes()
                    for o in out["outputs"].values())
+
+
+# ---------------------------------------------------------------------------
+# training and the frontends on the card
+# ---------------------------------------------------------------------------
+
+def test_lm_kernels_refuse_inputs_that_require_grad(card):
+    """K2, K3 and K4 have no backward: a CUDA input that requires grad in
+    grad mode raises, and under ``no_grad`` the same call runs."""
+    q = torch.randn(1, 8, 4, 64, device=card, requires_grad=True)
+    x = torch.randn(1, 8, 4, 32, device=card, requires_grad=True)
+    dt = torch.rand(1, 8, 4, device=card)
+    A = -torch.rand(4, device=card)
+    bc = torch.randn(1, 8, 1, 8, device=card)
+    w = torch.rand(1, 8, 4, 32, device=card)
+    u = torch.randn(4, 32, device=card)
+    calls = [lambda: flash_attention(q, q.detach(), q.detach()),
+             lambda: mamba2_scan(x, dt, A, bc, bc),
+             lambda: rwkv6_wkv(x.detach(), x, x.detach(), w, u)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+#: internvl2-2b's prefill widths (16 query heads over 8 kv heads of 128,
+#: causal) with its 256 image tokens ahead of two served text lengths and
+#: of the 1024 that chip_smoke's phase 10 prefills, and at 2048; hubert-xlarge's encoder (16/16 heads of 80, bidirectional: no
+#: tile is skipped) at the 128-row tile's edges, 1024 and 2048
+FRONTEND_FLASH = ([((1, 256 + n, 16, 8, 128, True, 0), "bfloat16")
+                   for n in (285, 1024, 1781)]
+                  + [((1, 2048, 16, 8, 128, True, 0), "bfloat16")]
+                  + [((1, S, 16, 16, 80, False, 0), "bfloat16")
+                     for S in (127, 128, 129, 1024, 2048)]
+                  + [((1, 2048, 16, 16, 80, False, 0), "float32")])
+
+
+@pytest.mark.parametrize("shape,dtype", FRONTEND_FLASH, ids=str)
+def test_flash_attention_frontend_shapes(card, shape, dtype):
+    """bf16 on ``flash_fwd_tc`` within 1e-3 + 2^-7 |ref|, float32 on
+    ``flash_fwd`` within 3e-5, of the plain version in float32."""
+    B, S, H, KV, hd, causal, win = shape
+    q, k, v = (torch.from_numpy(a).to(card).to(getattr(torch, dtype))
+               for a in flash_inputs(B, S, H, KV, hd, seed=S + hd))
+    before = fa.flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before + (dtype == "bfloat16")
+    ref = fa.reference(q.float(), k.float(), v.float(), causal=causal,
+                       window=win)
+    atol, rtol = (3e-5, 0.0) if dtype == "float32" else (1e-3, 2.0 ** -7)
+    assert_close(out, ref, atol, rtol)
+
+
+def _frontend_inputs(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    fe = cfg.frontend
+    if fe.kind == "audio_frames":
+        return {"features": torch.from_numpy(rng.standard_normal(
+            (B, S, fe.feature_dim)).astype(np.float32))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))),
+            "image_embeds": torch.from_numpy(rng.standard_normal(
+                (B, fe.num_prefix_tokens, fe.feature_dim))
+                .astype(np.float32))}
+
+
+@pytest.mark.parametrize("arch", ["internvl2_2b", "hubert_xlarge"])
+def test_frontend_forward_on_card_matches_cpu(card, arch):
+    """The same seed-made smoke weights on both devices, float32: forward
+    logits within 1e-4 relative, attention on K2 on the card."""
+    cfg = get_smoke_config(arch)
+    cpu = M.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = M.Model(cfg, None, card)
+    on_card.load_state_dict(cpu.state_dict())
+    inputs = _frontend_inputs(cfg, 2, 24, seed=1)
+    before = fa.flash_attention.launches
+    out = {}
+    for name, params in [("cpu", cpu), ("card", on_card)]:
+        dev = params.embed.table.device
+        x, _ = M.forward(params, cfg, {k: v.to(dev)
+                                       for k, v in inputs.items()})
+        out[name] = M.logits(params, cfg, x).cpu()[..., :cfg.vocab]
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    assert float((out["card"] - out["cpu"]).abs().max()
+                 / out["cpu"].abs().max()) < 1e-4
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """qwen3-32b's smoke config from the same weights on the same batches,
+    float32: the first batch's grads every leaf within 1e-4 (max |diff|
+    over max |ref|); two ``make_train_step`` steps, the losses within 1e-4,
+    AdamW's m and v every leaf within 1e-4 element-wise, and every updated
+    parameter within 1e-4 normwise (||diff|| / ||ref||: Adam moves an
+    element with |g| near its eps by lr g / (|g| + eps), so float32
+    rounding of such a grad moves it by up to a tenth of lr, and two
+    correct float32 runs differ element-wise by a few 1e-4); no kernel
+    launched."""
+    import copy
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import optimizer, train_step
+    cfg = get_smoke_config("qwen3_32b")
+    opt = optimizer.OptConfig(total_steps=10, warmup_steps=2, peak_lr=1e-3)
+    shape = ShapeConfig("s", "train", 32, 4, num_microbatches=2)
+    step = train_step.make_train_step(cfg, shape, opt)
+    cpu, _ = train_step.init_train_state(torch.Generator().manual_seed(0),
+                                         cfg, opt)
+    models = {"cpu": cpu, "card": copy.deepcopy(cpu).to(card)}
+    states = {k: optimizer.init_opt_state(m) for k, m in models.items()}
+    losses = {"cpu": [], "card": []}
+    counts = [f.launches for f in (flash_attention, mamba2_scan, rwkv6_wkv)]
+    batches = [torch.from_numpy(np.random.default_rng(i).integers(
+        0, cfg.vocab, (4, 32))) for i in range(2)]
+    grads = {}
+    for k, m in models.items():
+        t = batches[0].to(m.embed.table.device)
+        grads[k], _, _ = train_step.grads_and_loss(
+            m, cfg, {"tokens": t, "labels": t}, shape)
+    for n, g in grads["cpu"].items():
+        assert float((grads["card"][n].cpu() - g).abs().max()
+                     / g.abs().max().clamp_min(1e-30)) < 1e-4, n
+    for toks in batches:
+        for k, m in models.items():
+            t = toks.to(m.embed.table.device)
+            _, states[k], met = step(m, states[k], {"tokens": t,
+                                                    "labels": t})
+            losses[k].append(float(met["loss"]))
+    assert counts == [f.launches for f in (flash_attention, mamba2_scan,
+                                           rwkv6_wkv)]
+    for a, b in zip(losses["card"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for (n, p), (_, q) in zip(models["card"].named_parameters(),
+                              models["cpu"].named_parameters()):
+        err = float((p.detach().cpu() - q.detach()).norm()
+                    / q.detach().norm())
+        assert err < 1e-4, n
+        for k in ("m", "v"):
+            a, b = states["card"][k][n].cpu(), states["cpu"][k][n]
+            assert float((a - b).abs().max() / b.abs().max()) < 1e-4, (k, n)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "rwkv6_3b",
+                                  "deepseek_v2_lite_16b"])
+def test_training_path_launches_no_kernel(card, arch):
+    """The loss runs on the plain mixers: a backward on the card launches
+    none of K2, K3 and K4, and every parameter the loss reaches gets a
+    grad."""
+    from repro_torch.train import optimizer, train_step
+    cfg = get_smoke_config(arch)
+    params, _ = train_step.init_train_state(
+        torch.Generator(device=card).manual_seed(0), cfg,
+        optimizer.OptConfig())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40))).to(card)
+    counts = [f.launches for f in (flash_attention, mamba2_scan, rwkv6_wkv)]
+    loss, _ = M.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
+    loss.backward()
+    assert counts == [f.launches for f in (flash_attention, mamba2_scan,
+                                           rwkv6_wkv)]
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None for p in params.parameters())

@@ -197,7 +197,7 @@ def test_shared_prefix_model_matches_reference(shared_pair, step):
     toks = torch.from_numpy(shared_pair["tokens"]).long()
     v = cfg.vocab
     if step == "forward":
-        hidden = TM.forward(params, cfg, {"tokens": toks[:, :S]},
+        hidden, _ = TM.forward(params, cfg, {"tokens": toks[:, :S]},
                             inference=True)
         assert rel(hidden.numpy(), shared_pair["hidden"]) < 1e-4
         return
@@ -220,7 +220,7 @@ def test_shared_prefix_model_matches_reference(shared_pair, step):
                for layers in new.values() for c in layers)
     # the port's prefill + decode equals its own forward (5e-3, the bound
     # of tests/test_serve.py)
-    hidden = TM.forward(params, cfg, {"tokens": toks}, inference=True)
+    hidden, _ = TM.forward(params, cfg, {"tokens": toks}, inference=True)
     ref = TM.logits(params, cfg, hidden[:, -1])
     assert rel(dec[:, :v].numpy(), ref[:, :v].numpy()) < 5e-3
 

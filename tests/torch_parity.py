@@ -342,3 +342,53 @@ def wkv_tc_emulation(r, k, v, w, u, chunk=32, split=True):
             + torch.einsum("bqhi,bqhn->bhin", kd, vc)
         outs.append(o)
     return torch.cat(outs, dim=1).to(torch.bfloat16), s
+
+
+def train_batch(cfg, B, S, seed=0):
+    """A numpy training batch for ``cfg``: tokens and labels (one label
+    -100), plus ``image_embeds`` (B, P, feat) for a vision config; for an
+    audio config ``features`` (B, S, feat) and labels over its clusters.
+    S counts the text tokens of a vision config (P image positions come
+    before them)."""
+    rng = np.random.default_rng(seed)
+    fe = cfg.frontend
+    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    labels[0, S // 2] = -100
+    if fe.kind == "audio_frames":
+        return {"features": rng.standard_normal(
+            (B, S, fe.feature_dim)).astype(np.float32), "labels": labels}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "labels": labels}
+    if fe.kind == "vision_patches":
+        batch["image_embeds"] = rng.standard_normal(
+            (B, fe.num_prefix_tokens, fe.feature_dim)).astype(np.float32)
+    return batch
+
+
+def tree_items(tree, prefix=()):
+    """(path, leaf) of a nested dict of arrays, in key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def assert_trees_close(port, ref, rtol, normwise=False):
+    """Every leaf of ``ref`` (nested dicts of arrays) within ``rtol`` of
+    ``port``'s, as max |diff| over max |ref| (or with ``normwise`` as
+    ||diff|| / ||ref||); a leaf that is exactly zero in ``ref`` must be
+    exactly zero in ``port``. Both trees have the same paths."""
+    got = dict(tree_items(port))
+    want = dict(tree_items(ref))
+    assert sorted(got) == sorted(want)
+    size = np.linalg.norm if normwise else (lambda x: np.abs(x).max())
+    for path, r in want.items():
+        a = got[path]
+        assert a.shape == r.shape, path
+        if not r.any():
+            assert not a.any(), f"{'/'.join(path)}: zero in the reference"
+            continue
+        r = r.astype(np.float64)
+        err = float(size(a.astype(np.float64) - r) / size(r))
+        assert err < rtol, f"{'/'.join(path)}: rel {err:.3g}"

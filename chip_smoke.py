@@ -154,8 +154,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    steps, checkpoints every 10, a failure injected before step 15: one
    restart, the state restored at step 10 equal byte for byte to the one
    saved, no kernel launched.
+12. The mesh layer over ``torch.distributed``, all under one NCCL process
+   group of world size 1 (the machine has one card; multi-rank behaviour
+   is held on the CPU with gloo, tests/test_torch_distributed.py),
+   destroyed at the phase's end, everything it allocates freed:
+   12a. The NF-HEDM layer staged onto the card: phase 4's scan (736
+   float32 frames of 2048x2048, 12.35 GB, seed 0) held once on the host
+   and cut into 16 shards of 46 frames as views, through ``staged_restore``
+   on a ("data",) mesh of 1; ``hedm_reduce`` on the staged tensor (its
+   launch count set to 0 just before, read just after: 1) gives the mask
+   and counts that it gives on the frames put on the card directly
+   (``torch.equal``); the staging seconds and GB/s.
+   12b. internvl2-2b at full width and depth (1.896 B parameters, 3.79 GB
+   in bf16) saved with ``CheckpointStore`` and restored by
+   ``restore_resharded`` onto a ("data", "model") mesh of (1, 1) with
+   ``param_pspecs`` of ``make_ctx`` of that mesh: every leaf on its
+   placements, byte for byte; save and restore seconds.
+   12c. internvl2-2b's grads of one step of phase 11's configuration (4 x
+   1024 positions, plain mixers) through ``compressed_grad_allreduce`` over
+   a ("pod",) mesh of 1: every reduced leaf and new error state equal to
+   the same arithmetic on the card without ``torch.distributed``, bit for
+   bit; the int8 bytes on the wire, the leaves and the ms.
+   Its seconds are printed as ``[main] phases (s), phase 12``.
 
-Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11 and 11b) runs with every
+Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11, 11b and 12a) runs with every
 launch count set to 0 just before and read just after. The last three lines of standard
 output are the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -1477,6 +1499,228 @@ def check_trainer_restart(np, torch, dev, zero_counts, counted):
 
 
 
+def staged_frames(np, torch, dev, zero_counts, n_frames, seconds):
+    """Phase 12a: the NF-HEDM layer staged onto the card. The scan of phase
+    4's seed, cut into 16 host shards (views of the one host copy), goes
+    through ``staged_restore`` on a ("data",) mesh of 1; K1 on the staged
+    tensor (launch count set to 0 just before, read just after) must give
+    the mask and counts that K1 gives on the frames put on the card
+    directly, and the staged tensor must equal them. Returns K1's
+    launches on the staged path."""
+    from repro_torch.core.staging import staged_restore
+    from repro_torch.hedm.pipeline import simulate_detector_frames
+    from repro_torch.kernels.ops import hedm_reduce
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    frames, dark = simulate_detector_frames(n_frames, size=SIZE, n_spots=12,
+                                            seed=0, device=dev)
+    seconds["12a_generation"] = time.perf_counter() - t0
+    n_shards = 16 if n_frames % 16 == 0 else 1
+    per = n_frames // n_shards
+    shards = {i: frames[i * per:(i + 1) * per] for i in range(n_shards)}
+    if not all(np.shares_memory(v, frames) for v in shards.values()):
+        raise AssertionError("the host shards are not views of the scan")
+    mesh = make_mesh((1,), ("data",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = staged_restore(mesh, shards, "data")
+    torch.cuda.synchronize()
+    stage_s = seconds["12a_staging"] = time.perf_counter() - t0
+    dark_t = torch.from_numpy(dark).to(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    m, c = hedm_reduce(staged, dark_t, 200.0)
+    torch.cuda.synchronize()
+    seconds["12a_kernel"] = time.perf_counter() - t0
+    launches = hedm_reduce.launches
+    t0 = time.perf_counter()
+    direct = torch.from_numpy(frames).to(dev)
+    torch.cuda.synchronize()
+    seconds["12a_direct_h2d"] = time.perf_counter() - t0
+    same_frames = torch.equal(staged, direct)
+    del staged
+    m_direct, c_direct = hedm_reduce(direct, dark_t, 200.0)
+    same = torch.equal(m, m_direct) and torch.equal(c, c_direct)
+    n_bytes = frames.nbytes
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    print(f"[mesh] 12a: {n_frames} float32 frames of {SIZE}x{SIZE} "
+          f"({n_bytes / 1e9:.2f} GB, one host copy, {n_shards} shards of "
+          f"{per} frames as views) staged by staged_restore on a "
+          f"(\"data\",) mesh of 1 over NCCL in {stage_s:.4f} s = "
+          f"{n_bytes / stage_s / 1e9:.2f} GB/s (the frames put on the card "
+          f"directly: {seconds['12a_direct_h2d']:.4f} s); staged tensor "
+          f"{'equals' if same_frames else 'DIFFERS from'} the direct one; "
+          f"hedm_reduce on it: {launches} launch, "
+          f"{int(c.sum())} spot pixels, mask and counts "
+          f"{'equal' if same else 'DIFFER from'} K1's on the direct "
+          f"frames; peak host RSS {rss_gb:.2f} GB", flush=True)
+    if not (same and same_frames and launches == 1):
+        raise AssertionError("phase 12a: the staged frames or K1 on them "
+                             "differ from the frames put on the card")
+    del direct, m, c, m_direct, c_direct, dark_t, frames, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resharded_restore(torch, dev, ckpt_dir, seconds):
+    """Phase 12b: internvl2-2b at full width and depth (bf16, seed 0) saved
+    with ``CheckpointStore`` and restored by ``restore_resharded`` into an
+    uninitialised template on a ("data", "model") mesh of (1, 1) with
+    ``param_pspecs`` of that mesh's context: every leaf a DTensor with its
+    spec's placements, equal byte for byte to the saved parameter. Returns
+    the saved model."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import (make_ctx, param_pspecs,
+                                                  placements)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    cfg = get_config("internvl2_2b")
+    model = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    n = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    store = CheckpointStore(os.path.join(ckpt_dir, "ckpt"))
+    t0 = time.perf_counter()
+    store.save(1, model)
+    save_s = seconds["12b_save"] = time.perf_counter() - t0
+    mesh = make_mesh((1, 1), ("data", "model"))
+    specs = param_pspecs(cfg, model, make_ctx(mesh))
+    template = M.Model(cfg, None, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = store.restore_resharded(template, mesh, specs)
+    torch.cuda.synchronize()
+    restore_s = seconds["12b_restore"] = time.perf_counter() - t0
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+    bad = [name for name, p in model.named_parameters()
+           if tuple(back[name].placements) != tuple(placements(specs[name],
+                                                               mesh))
+           or back[name].device != p.device
+           or not torch.equal(raw(back[name].to_local()), raw(p.detach()))]
+    sharded = sum(any(e is not None for e in s) for s in specs.values())
+    print(f"[mesh] 12b: {cfg.name} ({n / 1e9:.3f} B parameters, "
+          f"{n_bytes / 1e9:.2f} GB in {cfg.param_dtype}, {len(specs)} "
+          f"leaves, {sharded} "
+          f"with a sharded spec) saved in {save_s:.2f} s, restored by "
+          f"restore_resharded onto a (\"data\", \"model\") mesh of (1, 1) "
+          f"in {restore_s:.2f} s ({n_bytes / restore_s / 1e9:.2f} GB/s); "
+          f"{len(specs) - len(bad)} of {len(specs)} leaves equal byte for "
+          f"byte on their placements", flush=True)
+    if bad:
+        raise AssertionError(f"phase 12b: {len(bad)} leaves differ: "
+                             f"{bad[:4]}")
+    del template, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def dcn_reduction(np, torch, dev, model, seconds):
+    """Phase 12c: internvl2-2b's grads from one step of phase 11's
+    configuration (4 x 1024 positions: 256 image embeddings and 768 tokens
+    from a numpy seed, 2 microbatches, remat, plain mixers) through
+    ``compressed_grad_allreduce`` over a ("pod",) mesh of 1 with a zero
+    error state. Each reduced leaf must equal the same arithmetic done on
+    the card without ``torch.distributed`` (quantize, dequantize, quantize,
+    dequant-sum, divide by 1) bit for bit, and each new error ``tgt -
+    dequantize(q, scale)``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import compression as C
+    from repro_torch.train.train_step import grads_and_loss
+    cfg = get_config("internvl2_2b")
+    B, S, P = 4, 1024, cfg.frontend.num_prefix_tokens
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S - P))
+                            .astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks,
+             "image_embeds": torch.from_numpy(rng.standard_normal(
+                 (B, P, cfg.frontend.feature_dim)).astype(np.float32))
+             .to(dev)}
+    shape = ShapeConfig("train", "train", S, B, num_microbatches=2,
+                        remat=True)
+    model.requires_grad_(True)
+    t0 = time.perf_counter()
+    grads, loss, _ = grads_and_loss(model, cfg, batch, shape)
+    torch.cuda.synchronize()
+    seconds["12c_grads"] = time.perf_counter() - t0
+    model.requires_grad_(False)
+    del batch
+    errors = C.init_error_state(grads)
+    mesh = make_mesh((1,), ("pod",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red, new_err = C.compressed_grad_allreduce(grads, errors, mesh, "pod")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    seconds["12c_reduction"] = ms / 1e3
+
+    def quantize(x):
+        scale = x.abs().amax() / 127.0 + 1e-12
+        return torch.clamp(torch.round(x / scale), -127, 127).to(
+            torch.int8), scale
+    bad = []
+    for name, g in grads.items():
+        tgt = g.to(torch.float32) + errors[name]
+        q, scale = quantize(tgt)
+        deq = q.to(torch.float32) * scale
+        q2, scale2 = quantize(deq)
+        want = (scale2 * q2.to(torch.float32)) / 1
+        if not (torch.equal(red[name], want)
+                and torch.equal(new_err[name], tgt - deq)
+                and bool(torch.isfinite(g).all())):
+            bad.append(name)
+    numel = sum(g.numel() for g in grads.values())
+    wire = numel + 4 * len(grads)
+    print(f"[mesh] 12c: {cfg.name} grads of one step of {B} x {S} positions "
+          f"(loss {float(loss):.4f}, {seconds['12c_grads']:.2f} s), "
+          f"{len(grads)} leaves, {numel / 1e9:.3f} B values: "
+          f"compressed_grad_allreduce over a (\"pod\",) mesh of 1 over NCCL "
+          f"in {ms:.2f} ms; {wire} bytes on the wire (int8 payloads and "
+          f"float32 scales; float32 grads would be {4 * numel}); "
+          f"{len(grads) - len(bad)} of {len(grads)} leaves and error states "
+          f"equal the arithmetic without torch.distributed bit for bit",
+          flush=True)
+    if bad or not np.isfinite(float(loss)):
+        raise AssertionError(f"phase 12c: {len(bad)} leaves differ: "
+                             f"{bad[:4]}")
+    del grads, errors, red, new_err
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(np, torch, dev, zero_counts, n_frames):
+    """Phase 12: 12a, 12b and 12c under one NCCL process group of world
+    size 1 (one card), destroyed at the end; everything allocated freed.
+    Returns K1's launches on the staged path and the phase's seconds."""
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+    seconds = {}
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="repro_mesh_") as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rendezvous",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=300))
+        try:
+            launches = staged_frames(np, torch, dev, zero_counts, n_frames,
+                                     seconds)
+            model = resharded_restore(torch, dev, d, seconds)
+            dcn_reduction(np, torch, dev, model, seconds)
+            del model
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["12"] = time.perf_counter() - t_phase
+    return launches, seconds
+
+
 def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     import torch
     if not torch.cuda.is_available():
@@ -1764,6 +2008,11 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     for arch in ("internvl2_2b", "hubert_xlarge"):
         train_full_width(np, torch, dev, arch, zero_counts, counted)
     check_trainer_restart(np, torch, dev, zero_counts, counted)
+    # 12. device-level staging, the resharded restore and the int8 DCN
+    # reduction over NCCL at world size 1
+    staged_launches, mesh_s = mesh_phase(np, torch, dev, zero_counts,
+                                         n_frames)
+    print("[main] phases (s), phase 12: " + json.dumps(mesh_s), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
 
     kernels = [{
@@ -1774,7 +2023,8 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "exact": max_err == 0,
-        "driver_launches": driver_launches, "nf_reduction": nf_row,
+        "driver_launches": driver_launches,
+        "staged_launches": staged_launches, "nf_reduction": nf_row,
     }]
     for name, line in [("flash_attention", 110), ("mamba2_scan", 89),
                        ("rwkv6_wkv", 80)]:

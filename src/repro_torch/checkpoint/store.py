@@ -16,8 +16,10 @@ which its ``restore`` cannot load back; here a tuple's items are leaves
 of their own. ``save_async`` snapshots every leaf to host memory before
 its writer thread starts; ``restore`` puts each leaf back on its template
 leaf's device in that leaf's dtype, and writes a module's parameters in
-place. Restoring onto another mesh (``restore_resharded``) is not ported
-yet and raises.
+place. ``restore_resharded`` restores on the host as ``restore`` does, then
+lays each leaf onto a ``torch.distributed`` ``DeviceMesh`` as a ``DTensor``
+with the placements of its spec (elastic restore onto another mesh or
+participant count).
 
 Beyond model state, the store also snapshots the DATASET CATALOG of a
 `repro_torch.core.datasvc.StagingService` (:meth:`CheckpointStore.save_catalog`
@@ -39,8 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-RESHARD_TODO = ("restoring onto another mesh is not ported yet: ROADMAP §1 "
-                "item 8 (distributed)")
+from repro_torch.distributed.sharding import distribute_params
 
 
 class CheckpointError(RuntimeError):
@@ -241,8 +242,14 @@ class CheckpointStore:
 
     def restore_resharded(self, template: Any, mesh, pspecs,
                           step: Optional[int] = None) -> Any:
-        """Elastic restore onto another mesh: not ported yet, raises."""
-        raise NotImplementedError(RESHARD_TODO)
+        """Elastic restore: place restored leaves directly onto a (possibly
+        different) mesh with the given specs (``pspecs`` in the template's
+        structure; for a module, a dict of its parameter names, as
+        `repro_torch.distributed.sharding.param_pspecs` gives it). Returns
+        the tree of ``DTensor``s (a dict of parameter names for a module),
+        on the mesh's device."""
+        host = self.restore(template, step)
+        return distribute_params(host, pspecs, mesh)
 
     # -- dataset-catalog snapshot (simulated service restart) ----------------
     def _catalog_path(self, tag: str) -> str:

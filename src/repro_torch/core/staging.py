@@ -20,9 +20,11 @@ receives one shared read-only view instead of P concatenated copies. The
 simulated-time accounting (per-host write bandwidth) is unchanged; only the
 real memory traffic of the simulator goes away.
 
-Host engines only: device-level staging (the reference package's
-``device_replicate`` / ``device_shard`` / ``staged_restore``) is not part of
-this copy yet; it comes over later on ``torch.distributed``.
+Device-level (``device_replicate`` / ``device_shard`` / ``staged_restore``):
+the same algorithm over a ``torch.distributed`` ``DeviceMesh`` (NCCL on the
+card, gloo on the CPU). Each rank contributes its 1/P shard; one
+``all_gather_into_tensor`` over the axis's group replicates it; held to
+the reference on a gloo group of 4 ranks.
 
 All modes byte-exact: tests assert staged replicas equal the source.
 """
@@ -33,10 +35,14 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.compression import CompressionLike, CompressionStats
 from repro_torch.core.fabric import Fabric
 from repro_torch.core.topology import TopologyLike
+from repro_torch.distributed.sharding import placements
 
 
 @dataclass
@@ -703,3 +709,58 @@ def stage_out_naive(fabric: Fabric, outputs: Dict[str, np.ndarray],
 # runners all resolve engines through it — new engines register once with
 # a typed config instead of editing per-consumer tables.
 
+
+# ---------------------------------------------------------------------------
+# device-level staging (torch.distributed mesh) — shard + all-gather
+# ---------------------------------------------------------------------------
+
+def device_replicate(mesh, x: torch.Tensor, axis: str = "data"
+                     ) -> torch.Tensor:
+    """Replicate a tensor across `axis` given each participant holds 1/P of
+    it.
+
+    Input: this rank's shard of the leading dim (the same shape on every
+    rank). Output: the full tensor, on every rank of the axis, on the
+    mesh's device. This is the staging all-gather: read-shards once,
+    replicate over the interconnect — instead of every participant
+    fetching the full buffer from storage.
+    """
+    x = x.to(mesh.device_type).contiguous()
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mesh.get_group(axis))
+    return out
+
+
+def device_shard(mesh, x, spec) -> DTensor:
+    """Lay out a host buffer onto the mesh with the given spec (a
+    `repro_torch.distributed.sharding.P`): the 'distribute' half of
+    staging, for non-replicated targets."""
+    return distribute_tensor(torch.as_tensor(x), mesh,
+                             placements(spec, mesh))
+
+
+def staged_restore(mesh, shards: Dict[int, np.ndarray],
+                   axis: str = "data") -> torch.Tensor:
+    """Checkpoint-restore staging: the shards (numpy arrays or tensors, 1/P
+    of the array each, along the leading dim) are concatenated in key
+    order, as the reference does; the ranks of `axis` own consecutive equal
+    runs of them. Each rank copies its own onto its device, then one
+    all-gather assembles the replicated full array. With one rank on the
+    axis, every shard is that rank's."""
+    order = sorted(shards)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if len(order) % n:
+        raise ValueError(f"{len(order)} shards do not split evenly over "
+                         f"the {n} ranks of axis {axis!r}")
+    k = len(order) // n
+    r = mesh.get_local_rank(axis)
+    mine = [torch.as_tensor(shards[i]) for i in order[r * k:(r + 1) * k]]
+    local = torch.empty((sum(s.shape[0] for s in mine),)
+                        + tuple(mine[0].shape[1:]), dtype=mine[0].dtype,
+                        device=mesh.device_type)
+    row = 0
+    for s in mine:
+        local[row:row + s.shape[0]].copy_(s)
+        row += s.shape[0]
+    return device_replicate(mesh, local, axis)

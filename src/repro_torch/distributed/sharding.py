@@ -1,0 +1,377 @@
+"""Sharding rules: FSDP x TP x EP (+ optional SP) over the production mesh.
+
+Counterpart of ``repro.distributed.sharding``; the rules and the spec
+builders are the reference's, verbatim where they are pure Python.
+
+Strategy (MaxText-flavored, adapted per architecture):
+  * TP ("model" axis): attention heads / FFN hidden / experts / vocab.
+  * FSDP ("data" axis): the complementary dim of every large matrix
+    (ZeRO-3-style). Required to fit 72B optimizer state.
+  * DP: batch over ("pod","data") — the "pod" axis carries only gradient
+    all-reduce traffic (bulk data stays on-pod: the paper's locality
+    principle applied across pods).
+  * GQA with n_kv_heads < tp: KV projections REPLICATED over tp (Megatron
+    convention); q heads sharded.
+  * RWKV6 time-mix: r/k/w replicated over tp; v / state / output sharded on
+    the VALUE dim (the recurrence is independent across value channels).
+  * Uneven dims (vocab 92553, hubert 504) fall back to replicated.
+
+A spec is a :class:`P`, a tuple whose entries are an axis name, a tuple of
+axis names or ``None``, one per tensor dim (trailing dims left out are
+unsharded), as JAX's ``PartitionSpec``. :func:`placements` maps it onto a
+``torch.distributed`` ``DeviceMesh`` as DTensor placements.
+
+The reference stacks its layers along a leading dim (``stack/layers/attn/
+wq`` is (L, D, H*hd)) and prepends ``None`` to such a leaf's spec. The port
+keeps per-layer modules (``stack.layers.3.attn.wq``, and the ``groups``,
+``loras``, ``tail`` and ``prefix`` lists; ``models/convert.py``), so a
+port name maps onto the reference's path by dropping its layer index and
+joining with ``/``, and its spec is the reference's without that leading
+``None``. MoE experts stay stacked in both packages, so their rules apply
+unchanged. :func:`param_pspecs` reads only names and shapes: a model built
+on the meta device (``Model(cfg, None, "meta")``) costs no memory at full
+size.
+
+The mesh context inside the model (``ShardCtx.constrain``,
+:func:`fsdp_gather`) comes with the sharded train step and raises until
+then.
+"""
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+from torch import nn
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+
+MESH_CTX_TODO = ("sharding constraints inside the model are not ported yet: "
+                 "ROADMAP §1 item 8 (the sharded train step)")
+
+
+class P(tuple):
+    """A partition spec: ``P("data", None)``, ``P(("pod", "data"), None)``,
+    ``P()`` (replicated). A tuple of one axis name is that name, as in
+    JAX's ``PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """The mesh's axis names and sizes, and the roles of its axes."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    dp_axes: Tuple[str, ...] = ("data",)
+    fsdp_axis: Optional[str] = "data"
+    tp_axis: Optional[str] = "model"
+    sequence_parallel: bool = False
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def tp_size(self) -> int:
+        return self.shape[self.tp_axis] if self.tp_axis else 1
+
+    @property
+    def dp_size(self) -> int:
+        size = 1
+        for a in self.dp_axes:
+            size *= self.shape[a]
+        return size
+
+    def constrain(self, x, *spec):
+        raise NotImplementedError(MESH_CTX_TODO)
+
+
+# a rule: (path regex, spec builder). Spec entries are logical axis names
+# resolved against the ctx; "tp*" means "tp if divisible else None".
+Rule = Tuple[str, Tuple[Optional[str], ...]]
+
+RULES: Sequence[Rule] = (
+    (r"embed/table$",                ("tp*", None)),
+    (r"^head$",                      ("fsdp*", "tp*")),
+    (r"frontend/(fc1|fc2|proj)$",    ("fsdp*", "tp*")),
+    # --- attention (GQA) ---
+    (r"attn/wq$",                    ("fsdp*", "tp*")),
+    (r"attn/w[kv]$",                 ("fsdp*", "kv*")),
+    (r"attn/wo$",                    ("tp*", "fsdp*")),
+    (r"attn/bq$",                    ("tp*",)),
+    (r"attn/b[kv]$",                 ("kv*",)),
+    # --- MLA ---
+    (r"attn/w_dkv$",                 ("fsdp*", None)),
+    (r"attn/w_u[kv]$",               ("fsdp*", "tp*")),
+    # --- dense mlp ---
+    (r"mlp/w_(gate|up)$",            ("fsdp*", "tp*")),
+    (r"mlp/w_down$",                 ("tp*", "fsdp*")),
+    # --- moe ---
+    (r"moe/router$",                 ("fsdp*", None)),
+    (r"moe/w_(gate|up)$",            ("tp*", "fsdp*", None)),
+    (r"moe/w_down$",                 ("tp*", None, "fsdp*")),
+    (r"moe/shared/w_(gate|up)$",     ("fsdp*", "tp*")),
+    (r"moe/shared/w_down$",          ("tp*", "fsdp*")),
+    # --- mamba2 (split projections; see models/mamba2.py) ---
+    (r"mixer/in_[zx]$",              ("fsdp*", "tp*")),
+    (r"mixer/in_[BC]$",              ("fsdp*", None)),
+    (r"mixer/in_dt$",                ("fsdp*", "tp*")),
+    (r"mixer/conv_x$",               (None, "tp*")),
+    (r"mixer/conv_bx$",              ("tp*",)),
+    (r"mixer/conv_[BC]$",            (None, None)),
+    (r"mixer/(dt_bias|A_log|D)$",    ("tp*",)),
+    (r"mixer/norm/scale$",           ("tp*",)),
+    (r"mixer/out_proj$",             ("tp*", "fsdp*")),
+    # --- rwkv6 ---
+    (r"mixer/w[vg]$",                ("fsdp*", "tp*")),
+    (r"mixer/w[rk]$",                ("fsdp*", None)),
+    (r"mixer/wo$",                   ("tp*", "fsdp*")),
+    (r"mixer/(decay_a|mix_a|cm_r)$", ("fsdp*", None)),
+    (r"mixer/cm_k$",                 ("fsdp*", "tp*")),
+    (r"mixer/cm_v$",                 ("tp*", "fsdp*")),
+    # --- zamba site loras ---
+    (r"loras/a_[qk]$",               ("fsdp*", None)),
+    (r"loras/b_[qk]$",               (None, "tp*")),
+)
+
+
+def _ref_path(name: str) -> Tuple[str, bool]:
+    """The reference's path of a port name (``stack.layers.3.attn.wq`` ->
+    ``stack/layers/attn/wq``, also for ``/``-joined names), and whether
+    the name had a layer index."""
+    parts = name.replace(".", "/").split("/")
+    kept = [p for p in parts if not p.isdigit()]
+    return "/".join(kept), len(kept) < len(parts)
+
+
+def _tree_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Flatten dicts, NamedTuples and lists (their items keyed by index)
+    to path->leaf; a module flattens to its named parameters, and a
+    :class:`P` is a leaf."""
+    if isinstance(tree, nn.Module):
+        tree = dict(tree.named_parameters())
+    out = {}
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            out.update(_tree_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    elif hasattr(tree, "_fields"):
+        for k in tree._fields:
+            v = getattr(tree, k)
+            out.update(_tree_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        for i, v in enumerate(tree):
+            out.update(_tree_paths(v, f"{prefix}/{i}" if prefix else str(i)))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def _rebuild(tree: Any, specs: Dict[str, Any], prefix: str = "") -> Any:
+    """``tree``'s structure with the leaf at each path replaced by
+    ``specs[path]``; a module becomes a dict of its parameter names."""
+    if isinstance(tree, nn.Module):
+        return {n: specs[n] for n, _ in tree.named_parameters()}
+    if isinstance(tree, Mapping):
+        return {k: _rebuild(v, specs, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(getattr(tree, k), specs,
+                                     f"{prefix}/{k}" if prefix else str(k))
+                            for k in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, specs,
+                                   f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return specs[prefix]
+
+
+def _resolve(axis: Optional[str], dim: int, cfg: ModelConfig,
+             ctx: ShardCtx) -> Optional[str | Tuple[str, ...]]:
+    if axis is None:
+        return None
+    starred = axis.endswith("*")
+    base = axis.rstrip("*")
+    if base == "kv":
+        # GQA kv projections: shard only if kv heads divide tp
+        name = ctx.tp_axis
+        if name is None:
+            return None
+        if cfg.n_kv_heads % ctx.tp_size != 0:
+            return None
+        base, starred = "tp", True
+    name = {"tp": ctx.tp_axis, "fsdp": ctx.fsdp_axis}.get(base, base)
+    if name is None:
+        return None
+    size = ctx.shape[name]
+    if starred and dim % size != 0:
+        return None             # uneven dim -> replicate
+    return name
+
+
+def spec_for_path(path: str, shape: Tuple[int, ...], cfg: ModelConfig,
+                  ctx: ShardCtx) -> P:
+    for pattern, logical in RULES:
+        if re.search(pattern, path):
+            n_extra = len(shape) - len(logical)
+            resolved = tuple(
+                _resolve(a, shape[n_extra + i], cfg, ctx)
+                for i, a in enumerate(logical))
+            return P(*((None,) * n_extra + resolved))
+    return P()                   # norms, scalars, biases: replicated
+
+
+def param_pspecs(cfg: ModelConfig, params: Any, ctx: ShardCtx) -> Any:
+    """Specs matching ``params``: a model (a dict of its parameter names
+    comes back) or a tree of tensors; only names and shapes are read. A
+    per-layer leaf gets the reference's spec of its stacked path, without
+    the layer dim (the rules apply to trailing dims)."""
+    flat = _tree_paths(params)
+    specs = {p: spec_for_path(_ref_path(p)[0], tuple(v.shape), cfg, ctx)
+             for p, v in flat.items()}
+    return _rebuild(params, specs)
+
+
+# ---------------------------------------------------------------------------
+# input/output specs per shape kind
+# ---------------------------------------------------------------------------
+
+def input_pspecs(cfg: ModelConfig, shape: ShapeConfig, ctx: ShardCtx
+                 ) -> Dict[str, P]:
+    """PartitionSpecs for the input dict (batch over all dp axes)."""
+    b = ctx.dp_axes if shape.global_batch % ctx.dp_size == 0 else (
+        ctx.dp_axes[0] if shape.global_batch % ctx.shape[ctx.dp_axes[0]] == 0
+        else None)
+    specs: Dict[str, P] = {}
+    if cfg.frontend.kind == "audio_frames":
+        specs["features"] = P(b, None, None)
+        specs["labels"] = P(b, None)
+        return specs
+    specs["tokens"] = P(b, None)
+    if shape.kind == "train":
+        specs["labels"] = P(b, None)
+    if cfg.frontend.kind == "vision_patches":
+        specs["image_embeds"] = P(b, None, None)
+    return specs
+
+
+def cache_pspecs(cfg: ModelConfig, caches: Any, ctx: ShardCtx) -> Any:
+    """Decode caches: batch dim over dp; kv-heads/value dims over tp where
+    divisible. The reference's rule is written for stacked caches (leading
+    layer dim, batch next); the port's are per layer, so each per-layer
+    leaf gets the rule's spec of a stack of one, without the layer dim.
+    batch=1 (long_500k) leaves the batch dim unsharded — state/cap dims
+    carry the parallelism instead."""
+    def leaf_spec(path: str, shp: Tuple[int, ...]) -> P:
+        if path.endswith("length"):
+            return P(*((None,) * len(shp)))
+        # stacked leading layer dim + batch next
+        b_axes = ctx.dp_axes if shp[1] % ctx.dp_size == 0 else None
+        spec: list = [None, b_axes]
+        rest = len(shp) - 2
+        trailing: list = [None] * rest
+        if ctx.tp_axis is not None and rest >= 1:
+            tp = ctx.shape[ctx.tp_axis]
+            if "shared_kv" in path or "/k" in path or "/v" in path:
+                # KV cache (layers, B, cap, n_kv, hd): shard kv heads when
+                # divisible, else split-KV (cap dim) — bounds per-device
+                # cache bytes AND parallelizes decode attention over tp.
+                # Very long contexts (>=128k) ALWAYS split-KV: the cap dim is
+                # the memory, and cap/tp beats heads/tp when batch is tiny
+                # (zamba2 long_500k: 12.2 -> 0.8 GiB/device).
+                long_ctx = rest >= 2 and shp[2] >= 131072
+                if rest >= 2 and shp[3] % tp == 0 and not long_ctx:
+                    trailing[1] = ctx.tp_axis
+                elif shp[2] % tp == 0:
+                    trailing[0] = ctx.tp_axis
+            elif path.endswith("/h"):
+                # ssm state (layers,B,G,HG,P,N): shard HG
+                if shp[3] % tp == 0:
+                    trailing[1] = ctx.tp_axis
+            elif path.endswith("/s"):
+                # rwkv state (layers,B,H,Nk,Nv): shard value dim
+                if shp[-1] % tp == 0:
+                    trailing[-1] = ctx.tp_axis
+            elif path.endswith("/conv"):
+                if shp[-1] % tp == 0:
+                    trailing[-1] = ctx.tp_axis
+        return P(*(spec + trailing))
+
+    specs = {}
+    for p, leaf in _tree_paths(caches).items():
+        path, per_layer = _ref_path(p)
+        shp = tuple(leaf.shape)
+        specs[p] = (P(*leaf_spec(path, (1,) + shp)[1:]) if per_layer
+                    else leaf_spec(path, shp))
+    return _rebuild(caches, specs)
+
+
+def make_ctx(mesh, sequence_parallel: bool = False) -> ShardCtx:
+    """The context of a ``DeviceMesh`` (or of anything with its
+    ``mesh_dim_names`` and ``shape``)."""
+    axes = tuple(mesh.mesh_dim_names)
+    if "pod" in axes:
+        dp = ("pod", "data")
+    else:
+        dp = ("data",)
+    return ShardCtx(axis_names=axes, axis_sizes=tuple(mesh.shape),
+                    dp_axes=dp, fsdp_axis="data", tp_axis="model",
+                    sequence_parallel=sequence_parallel)
+
+
+# ---------------------------------------------------------------------------
+# specs onto a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def placements(spec: Sequence, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each mesh
+    dim that tensor dim ``d`` names, ``Replicate()`` on the others. A dim
+    sharded over several axes (``("pod", "data")``) must name them in the
+    mesh's order, the order in which DTensor splits it."""
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx) or any(out[i] != Replicate() for i in idx):
+            raise ValueError(f"spec {spec!r}: axes {axes} out of the mesh's "
+                             f"order {names} or used twice")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def distribute_params(params: Any, specs: Any, mesh) -> Any:
+    """Every tensor of ``params`` (a model, or a tree of tensors) as a
+    ``DTensor`` on ``mesh`` with the placements of its spec in ``specs``
+    (the tree :func:`param_pspecs` gives), in ``params``' structure (a
+    dict of parameter names for a model)."""
+    spec_flat = _tree_paths(specs)
+    placed = {p: distribute_tensor(t.detach(), mesh,
+                                   placements(spec_flat[p], mesh))
+              for p, t in _tree_paths(params).items()}
+    return _rebuild(params, placed)
+
+
+# ---------------------------------------------------------------------------
+# explicit FSDP weight prefetch
+# ---------------------------------------------------------------------------
+
+def fsdp_gather(subtree: Any, cfg: ModelConfig, ctx: Optional[ShardCtx],
+                prefix: str = "") -> Any:
+    """The reference constrains every weight of ``subtree`` to its rule
+    spec with the fsdp axis removed (ZeRO-3 prefetch inside the model);
+    without a context it returns ``subtree``. With one it raises until the
+    sharded train step is ported."""
+    if ctx is None or ctx.fsdp_axis is None:
+        return subtree
+    raise NotImplementedError(MESH_CTX_TODO)

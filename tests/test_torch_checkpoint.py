@@ -228,11 +228,56 @@ def test_damaged_checkpoint_names_the_object(tmp_path, name, truncate,
         store.restore(make_tree())
 
 
-def test_restore_resharded_raises(tmp_path):
-    store = CheckpointStore(str(tmp_path))
-    store.save(1, make_tree())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        store.restore_resharded(make_tree(), None, None)
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A (1, 1) ("data", "model") CPU mesh over a gloo group of one rank,
+    destroyed after the test."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("spec", [("data",), (None, "model"), ()],
+                         ids=["data", "model", "replicated"])
+def test_restore_resharded_onto_one_rank_mesh(tmp_path, one_rank_mesh,
+                                              spec):
+    """Each leaf comes back as a DTensor on the mesh with the placements
+    of its spec, its local block and full tensor equal to the saved one."""
+    from repro_torch.distributed.sharding import P, placements
+    store = CheckpointStore(str(tmp_path / "ckpt"))
+    tree = make_tree()
+    store.save(1, tree)
+    specs = {"w": P(*spec), "emb": {"table": P(*spec)}, "step": P()}
+    back = store.restore_resharded(make_tree(), one_rank_mesh, specs)
+    for (p, t), (_, s) in zip(leaves(tree).items(), leaves(specs).items()):
+        got = leaves(back)[p]
+        assert list(got.placements) == placements(s, one_rank_mesh)
+        assert same_bytes(got.to_local(), t) and same_bytes(
+            got.full_tensor(), t), p
+
+
+def test_restore_resharded_module_onto_one_rank_mesh(tmp_path,
+                                                     one_rank_mesh):
+    """A model restores by parameter name with ``param_pspecs``' specs."""
+    from repro_torch.distributed.sharding import make_ctx, param_pspecs
+    cfg = get_smoke_config("qwen3_32b")
+    saved = M.init_model(torch.Generator().manual_seed(3), cfg)
+    store = CheckpointStore(str(tmp_path / "ckpt"))
+    store.save(2, saved)
+    template = M.init_model(torch.Generator().manual_seed(4), cfg)
+    specs = param_pspecs(cfg, template, make_ctx(one_rank_mesh))
+    back = store.restore_resharded(template, one_rank_mesh, specs)
+    assert list(back) == [n for n, _ in saved.named_parameters()]
+    for n, p in saved.named_parameters():
+        assert same_bytes(back[n].full_tensor(), p.detach()), n
 
 
 # ---------------------------------------------------------------------------

@@ -766,3 +766,88 @@ def test_training_path_launches_no_kernel(card, arch):
                                            rwkv6_wkv)]
     assert torch.isfinite(loss)
     assert all(p.grad is not None for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# device-level staging, the int8 DCN reduction and the resharded restore
+# over NCCL at world size 1 (the card's machine has one card; multi-rank
+# behaviour is held on the CPU by tests/test_torch_distributed.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl(card, tmp_path):
+    """An NCCL process group of one rank, destroyed after the test."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=120))
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+def test_device_staging_over_nccl(nccl):
+    from repro_torch.core.staging import (device_replicate, device_shard,
+                                          staged_restore)
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 8)).astype(np.float32)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rep = device_replicate(mesh, torch.from_numpy(x), "data")
+    assert rep.is_cuda and torch.equal(rep.cpu(), torch.from_numpy(x))
+    shards = {i: x[8 * i:8 * (i + 1)] for i in (3, 0, 7, 1, 2, 6, 4, 5)}
+    back = staged_restore(mesh, shards, "data")
+    assert back.is_cuda and torch.equal(back.cpu(), torch.from_numpy(x))
+    d = device_shard(mesh, x, P("data", "model"))
+    assert d.to_local().is_cuda and torch.equal(d.full_tensor().cpu(),
+                                                torch.from_numpy(x))
+
+
+def test_compression_over_nccl_matches_the_arithmetic(nccl):
+    """One rank: the reduction is the quantize-dequantize-quantize-dequant
+    arithmetic, bit for bit, and the same on the card as on the CPU."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import compression as C
+    rng = np.random.default_rng(1)
+    g = {"w": torch.from_numpy(rng.standard_normal((256, 96))
+                               .astype(np.float32)).to(nccl),
+         "b": {"c": torch.from_numpy(rng.standard_normal(33)
+                                     .astype(np.float32)).to(nccl)}}
+    e = {"w": torch.full((256, 96), 1e-3, device=nccl),
+         "b": {"c": torch.zeros(33, device=nccl)}}
+    red, err = C.compressed_grad_allreduce(g, e, make_mesh((1,), ("pod",)))
+    for got, ge, gerr, ee in ((red["w"], g["w"], err["w"], e["w"]),
+                              (red["b"]["c"], g["b"]["c"], err["b"]["c"],
+                               e["b"]["c"])):
+        q, scale, new_e = C.compress_residual(ge, ee)
+        q2, s2 = C.quantize_int8(C.dequantize_int8(q, scale))
+        assert torch.equal(got, C.dequantize_int8(q2, s2))
+        assert torch.equal(gerr, new_e)
+        q_cpu, s_cpu, e_cpu = C.compress_residual(ge.cpu(), ee.cpu())
+        assert torch.equal(q.cpu(), q_cpu)
+        assert torch.equal(scale.cpu(), s_cpu)
+        assert torch.equal(new_e.cpu(), e_cpu)
+
+
+def test_restore_resharded_over_nccl(nccl, tmp_path):
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.distributed.sharding import (make_ctx, param_pspecs,
+                                                  placements)
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_smoke_config("internvl2_2b")
+    saved = M.init_model(torch.Generator(device=nccl).manual_seed(0), cfg)
+    store = CheckpointStore(str(tmp_path / "ckpt"))
+    store.save(1, saved)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    specs = param_pspecs(cfg, saved, make_ctx(mesh))
+    back = store.restore_resharded(M.Model(cfg, None, nccl), mesh, specs)
+    for n, p in saved.named_parameters():
+        assert tuple(back[n].placements) == tuple(placements(specs[n], mesh))
+        assert back[n].to_local().is_cuda
+        assert torch.equal(back[n].to_local().reshape(-1).view(torch.uint8),
+                           p.detach().reshape(-1).view(torch.uint8)), n

@@ -176,9 +176,37 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the same arithmetic on the card without ``torch.distributed``, bit for
    bit; the int8 bytes on the wire, the leaves and the ms.
    Its seconds are printed as ``[main] phases (s), phase 12``.
+13. The sharded model under the same NCCL group of world size 1:
+   13a. internvl2-2b at full width and depth in phase 11's configuration
+   (bf16, 4 x 1024 positions, 2 microbatches, remat; a numpy-seeded
+   batch): 2 steps of ``make_train_step(ctx=make_ctx(mesh))`` on a (1, 1)
+   ("data", "model") mesh (the parameters and state DTensors laid out by
+   ``init_train_state(ctx=...)``) against 2 unsharded steps on the card
+   from the same weights: losses and grad norms within 1e-5 relative,
+   every updated parameter within 1e-4 normwise; then 3 more steps each,
+   timed: the median step seconds of both and the peak memory of both.
+   13b. The same on a (1, 1, 1) ("pod", "data", "model") mesh with
+   ``compress_dcn`` (the pod branch), 2 steps: ``dcn_error`` after step 1
+   equal bit for bit to ``compress_residual`` of the grads that step
+   handed to the int8 hop, on each of the reference's stacked leaves (the
+   hop scales a whole leaf, as the reference's ``pod_body`` does); the
+   first loss within 1e-5 of 13a's.
+   13c. qwen3-moe-30b-a3b's MoE layer at full width (128 experts of 2048 x
+   768, top 8, 1.21 GB of bf16 weights) over 1 x 2048 tokens: the
+   expert-parallel ``moe_ffn(ctx=...)`` on a (1, 1) mesh against
+   ``moe_ffn`` without ``ctx``: aux and the layer's grads within 5e-3
+   relative, the output within 5e-3 normwise (the bf16 combine's atomics
+   add in no fixed order); each path's forward + backward after a warm-up
+   call, the median of 5.
+   13d. internvl2-2b's prefill of phase 10 (256 image + 1024 text tokens)
+   through ``prefill_step(ctx=...)`` on a (1, 1) mesh: the logits and every
+   cache equal to the unsharded prefill's, 24 K2 launches, all on
+   ``flash_fwd_tc``, no other kernel; K2's entry of the kernels line
+   carries them as ``sharded_launches``.
+   Its seconds are printed as ``[main] phases (s), phase 13``.
 
-Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11, 11b and 12a) runs with every
-launch count set to 0 just before and read just after. The last three lines of standard
+Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11, 11b, 12a and 13d) runs with
+every launch count set to 0 just before and read just after. The last three lines of standard
 output are the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -187,6 +215,7 @@ import ctypes
 import gc
 import json
 import os
+import re
 import resource
 import statistics
 import subprocess
@@ -1627,22 +1656,13 @@ def dcn_reduction(np, torch, dev, model, seconds):
     the card without ``torch.distributed`` (quantize, dequantize, quantize,
     dequant-sum, divide by 1) bit for bit, and each new error ``tgt -
     dequantize(q, scale)``."""
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import compression as C
     from repro_torch.train.train_step import grads_and_loss
     cfg = get_config("internvl2_2b")
-    B, S, P = 4, 1024, cfg.frontend.num_prefix_tokens
-    rng = np.random.default_rng(5)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S - P))
-                            .astype(np.int32)).to(dev)
-    batch = {"tokens": toks, "labels": toks,
-             "image_embeds": torch.from_numpy(rng.standard_normal(
-                 (B, P, cfg.frontend.feature_dim)).astype(np.float32))
-             .to(dev)}
-    shape = ShapeConfig("train", "train", S, B, num_microbatches=2,
-                        remat=True)
+    batch, shape = internvl_batch(np, torch, cfg, dev, 5)
+    B, S = shape.global_batch, shape.seq_len
     model.requires_grad_(True)
     t0 = time.perf_counter()
     grads, loss, _ = grads_and_loss(model, cfg, batch, shape)
@@ -1693,10 +1713,342 @@ def dcn_reduction(np, torch, dev, model, seconds):
     torch.cuda.empty_cache()
 
 
-def mesh_phase(np, torch, dev, zero_counts, n_frames):
-    """Phase 12: 12a, 12b and 12c under one NCCL process group of world
-    size 1 (one card), destroyed at the end; everything allocated freed.
-    Returns K1's launches on the staged path and the phase's seconds."""
+def internvl_batch(np, torch, cfg, dev, seed):
+    """Phase 11's training shape for internvl2-2b with a batch from numpy's
+    generator at ``seed``: 4 rows of 256 image embeddings and 768 tokens
+    (1024 positions), 2 microbatches, remat."""
+    from repro_torch.configs.base import ShapeConfig
+    B, S, P = 4, 1024, cfg.frontend.num_prefix_tokens
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S - P))
+                            .astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks,
+             "image_embeds": torch.from_numpy(rng.standard_normal(
+                 (B, P, cfg.frontend.feature_dim)).astype(np.float32))
+             .to(dev)}
+    return batch, ShapeConfig("train", "train", S, B, num_microbatches=2,
+                              remat=True)
+
+
+def timed_steps(torch, step, params, state, batch, n):
+    """``n`` steps: (params, state, [metrics], [host seconds a step])."""
+    mets, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        mets.append({k: float(v) for k, v in m.items()})
+        times.append(time.perf_counter() - t0)
+    return params, state, mets, times
+
+
+def sharded_train_step(np, torch, dev, mesh2, seconds):
+    """Phase 13a: internvl2-2b at full width and depth, bf16, phase 11's
+    configuration, 2 steps unsharded on the card and 2 steps of
+    ``make_train_step(ctx=make_ctx(mesh))`` on a (1, 1) ("data", "model")
+    mesh from the same weights (seed 0, ``init_train_state(ctx=...)`` laying
+    them onto the mesh as DTensors): the losses and grad norms within 1e-5
+    relative, every updated parameter within 1e-4 normwise. Then 3 more
+    steps each, timed (the overhead of the mesh path at world size 1).
+    Returns the first sharded loss and the numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = get_config("internvl2_2b")
+    batch, shape = internvl_batch(np, torch, cfg, dev, 13)
+    opt = OptConfig(total_steps=10, warmup_steps=2, peak_lr=1e-3)
+    out = {}
+    for which, ctx in (("unsharded", None), ("sharded", make_ctx(mesh2))):
+        torch.cuda.reset_peak_memory_stats()
+        params, state = init_train_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, opt, ctx=ctx)
+        step = make_train_step(cfg, shape, opt, ctx=ctx)
+        params, state, mets, _ = timed_steps(torch, step, params, state,
+                                             batch, 2)
+        host = {n: (p.to_local() if ctx is not None else p).detach().to(
+            "cpu", copy=True) for n, p in params.named_parameters()}
+        params, state, more, times = timed_steps(torch, step, params, state,
+                                                 batch, 3)
+        out[which] = {"metrics": mets, "params": host,
+                      "step_s": statistics.median(times), "times": times,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "finite": all(np.isfinite(list(m.values())).all()
+                                    for m in mets + more)}
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref, got = out["unsharded"], out["sharded"]
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(got["metrics"], ref["metrics"]))
+    norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                   for a, b in zip(got["metrics"], ref["metrics"]))
+    param_err = max(float((got["params"][n].float() - p.float()).norm()
+                          / p.float().norm())
+                    for n, p in ref["params"].items())
+    same = all(torch.equal(got["params"][n], p)
+               for n, p in ref["params"].items())
+    overhead = got["step_s"] / ref["step_s"] - 1
+    print(f"[sharded] 13a: {cfg.name} (bf16, 4 x 1024 positions, 2 "
+          f"microbatches, remat), 2 steps on a (1, 1) (\"data\", \"model\") "
+          f"mesh over NCCL against 2 unsharded steps on the card from the "
+          f"same weights: losses {[round(m['loss'], 6) for m in got['metrics']]}"
+          f" vs {[round(m['loss'], 6) for m in ref['metrics']]} (rel "
+          f"{loss_err:.3g}), grad norms rel {norm_err:.3g} (< 1e-5), every "
+          f"updated parameter within {param_err:.3g} normwise (< 1e-4; "
+          f"{'bit for bit' if same else 'not bit for bit'}); 3 more steps "
+          f"each: median step {got['step_s']:.4f} s sharded against "
+          f"{ref['step_s']:.4f} s unsharded ({overhead * 100:+.2f}%; "
+          f"{[round(t, 4) for t in got['times']]} vs "
+          f"{[round(t, 4) for t in ref['times']]}); peak device memory "
+          f"{got['peak_gb']:.2f} GB sharded, {ref['peak_gb']:.2f} GB "
+          f"unsharded", flush=True)
+    if not (loss_err < 1e-5 and norm_err < 1e-5 and param_err < 1e-4
+            and got["finite"] and ref["finite"]):
+        raise AssertionError(f"phase 13a: losses rel {loss_err}, grad norms "
+                             f"rel {norm_err}, parameters normwise rel "
+                             f"{param_err}, finite {got['finite']}")
+    seconds["13a_step_sharded"] = got["step_s"]
+    seconds["13a_step_unsharded"] = ref["step_s"]
+    seconds["13a_peak_gb_sharded"] = got["peak_gb"]
+    seconds["13a_peak_gb_unsharded"] = ref["peak_gb"]
+    return got["metrics"][0]["loss"]
+
+
+def pod_train_step(np, torch, dev, mesh3, first_loss, seconds):
+    """Phase 13b: 13a's configuration on a (1, 1, 1) ("pod", "data",
+    "model") mesh with ``compress_dcn`` (the pod branch), 2 steps. The
+    grads that step 1 hands to the int8 hop are recorded: ``dcn_error``
+    after step 1 equals ``compress_residual`` of them from zeros bit for
+    bit, on each of the reference's leaves (the per-layer parameters of
+    one stacked leaf stacked again: the hop scales the whole leaf), and the
+    first loss equals 13a's within 1e-5."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.train import compression as C
+    from repro_torch.train import train_step as T
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_config("internvl2_2b")
+    batch, shape = internvl_batch(np, torch, cfg, dev, 13)
+    opt = OptConfig(total_steps=10, warmup_steps=2, peak_lr=1e-3)
+    ctx = make_ctx(mesh3)
+    torch.cuda.reset_peak_memory_stats()
+    params, state = T.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, opt,
+        compress_dcn=True, ctx=ctx)
+    step = T.make_train_step(cfg, shape, opt, ctx=ctx, compress_dcn=True)
+    handed = []
+    hop = T.int8_pod_hop
+
+    def recording_hop(grads, errors, *args):
+        handed.append(grads)
+        return hop(grads, errors, *args)
+    T.int8_pod_hop = recording_hop
+    try:
+        params, state, mets, times = timed_steps(torch, step, params, state,
+                                                 batch, 1)
+    finally:
+        T.int8_pod_hop = hop
+    leaves = {}
+    for n in handed[0]:
+        leaves.setdefault(re.sub(r"\.\d+(?=\.|$)", "", n), []).append(n)
+    bad = []
+    for leaf, names in leaves.items():
+        g = torch.stack([handed[0][n] for n in names])
+        got = torch.stack([state["dcn_error"][n].to_local() for n in names])
+        if not torch.equal(got, C.compress_residual(
+                g, torch.zeros_like(g))[2]):
+            bad.append(leaf)
+        del g, got
+    n = len(leaves)
+    del handed
+    params, state, more, t2 = timed_steps(torch, step, params, state, batch,
+                                          1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_err = abs(mets[0]["loss"] - first_loss) / abs(first_loss)
+    finite = all(np.isfinite(list(m.values())).all() for m in mets + more)
+    print(f"[sharded] 13b: {cfg.name} on a (1, 1, 1) (\"pod\", \"data\", "
+          f"\"model\") mesh, compress_dcn, 2 steps: losses "
+          f"{[round(m['loss'], 6) for m in mets + more]} (the first rel "
+          f"{loss_err:.3g} of 13a's, < 1e-5), grad norms "
+          f"{[round(m['grad_norm'], 4) for m in mets + more]}; dcn_error "
+          f"after step 1 equals compress_residual of the step's grads bit "
+          f"for bit on {n - len(bad)} of {n} stacked leaves; step seconds "
+          f"{[round(t, 4) for t in times + t2]}; peak device memory "
+          f"{peak:.2f} GB", flush=True)
+    if bad or not loss_err < 1e-5 or not finite:
+        raise AssertionError(f"phase 13b: {len(bad)} error leaves differ "
+                             f"({bad[:4]}), first loss rel {loss_err}, "
+                             f"finite {finite}")
+    seconds["13b_peak_gb"] = peak
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_expert_parallel(np, torch, dev, mesh2, seconds):
+    """Phase 13c: qwen3-moe-30b-a3b's MoE layer at full width (128 experts
+    of 2048 x 768, top 8, bf16, seed 0) over 1 x 2048 tokens: the
+    expert-parallel path (``moe_ffn(ctx=...)``, the experts laid onto a (1,
+    1) mesh) against ``moe_ffn`` without ``ctx`` on the same weights and
+    input: the aux and the layer's grads (of a seeded cotangent on the
+    output plus the aux, from each path's first call) within 5e-3
+    relative (the bound tests/test_torch_moe.py holds the bf16 MoE path's
+    logits to), the output within 5e-3 normwise. Each path's forward +
+    backward is then timed warm: the median of 5 calls. The output is not
+    held element by element: the bf16 ``index_add_`` combine adds each
+    token's 8 expert outputs by atomics in no fixed order, so two runs of
+    the same path differ by a few bf16 roundings in an element (0.478% of
+    the largest element between the two paths in the first run on the
+    card)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import make_ctx, shard_model
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("qwen3_moe_30b_a3b")
+    holder = torch.nn.Module()
+    holder.moe = moe_mod.MoE(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    holder.requires_grad_(True)
+    n_bytes = sum(p.numel() * p.element_size() for p in holder.parameters())
+    rng = np.random.default_rng(14)
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = torch.from_numpy(rng.standard_normal((1, 2048, cfg.d_model))
+                         .astype(np.float32)).to(dev, cdt)
+    cot = torch.from_numpy(rng.standard_normal((1, 2048, cfg.d_model))
+                           .astype(np.float32)).to(dev, cdt)
+    def fwd_bwd(ctx):
+        out, aux = moe_mod.moe_ffn(holder.moe, cfg, x, ctx=ctx)
+        ((out.float() * cot.float()).sum() + aux).backward()
+        grads = {n: (p.grad.to_local() if ctx is not None else p.grad)
+                 for n, p in holder.named_parameters() if p.grad is not None}
+        for p in holder.parameters():
+            p.grad = None
+        return out.detach(), aux.detach(), grads
+
+    results = {}
+    for which in ("unsharded", "sharded"):
+        ctx = None
+        if which == "sharded":
+            ctx = make_ctx(mesh2)
+            shard_model(holder, cfg, ctx)
+        first = fwd_bwd(ctx)          # the compared result, and a warm-up
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd_bwd(ctx)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        results[which] = first + (statistics.median(times), times)
+    (o0, a0, g0, s0, t0s), (o1, a1, g1, s1, t1s) = results["unsharded"], \
+        results["sharded"]
+    out_err = float((o1.float() - o0.float()).norm() / o0.float().norm())
+    out_max = rel_err(o1.float(), o0.float())
+    aux_err = abs(float(a1) - float(a0)) / abs(float(a0))
+    grad_err = max(rel_err(g1[n].float(), g.float()) for n, g in g0.items())
+    exact = (torch.equal(o1, o0) and torch.equal(a1, a0)
+             and all(torch.equal(g1[n], g) for n, g in g0.items()))
+    print(f"[sharded] 13c: {cfg.name} MoE layer ({cfg.moe.num_experts} "
+          f"experts of {cfg.d_model} x {cfg.moe.expert_d_ff}, top "
+          f"{cfg.moe.top_k}, {n_bytes / 1e9:.2f} GB of bf16 weights) over 1 x "
+          f"2048 tokens: expert-parallel on a (1, 1) mesh against moe_ffn "
+          f"without ctx: out rel {out_err:.3g} normwise (element-wise max "
+          f"|diff| / max |ref| {out_max:.3g}), aux rel {aux_err:.3g} "
+          f"({float(a1):.6f}), {len(g0)} grad leaves within rel "
+          f"{grad_err:.3g} (< 5e-3; "
+          f"{'bit for bit' if exact else 'not bit for bit'});"
+          f" forward + backward after a warm-up call, median of 5: "
+          f"{s1:.4f} s sharded ({[round(t, 4) for t in t1s]}), {s0:.4f} s "
+          f"unsharded ({[round(t, 4) for t in t0s]})", flush=True)
+    if not (out_err < 5e-3 and aux_err < 5e-3 and grad_err < 5e-3
+            and set(g1) == set(g0) and len(g0) == 4):
+        raise AssertionError(f"phase 13c: out rel {out_err}, aux rel "
+                             f"{aux_err}, grads rel {grad_err}")
+    seconds["13c_fwd_bwd_sharded"] = s1
+    seconds["13c_fwd_bwd_unsharded"] = s0
+    del holder, results, x, cot
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_prefill(np, torch, dev, mesh2, zero_counts, counted,
+                    tensor_core, seconds):
+    """Phase 13d: internvl2-2b at full width and depth (bf16, seed 0),
+    phase 10's prefill (256 image + 1024 text tokens, seed 4) through
+    ``prefill_step(ctx=...)`` on a (1, 1) mesh, its launch counts set to 0
+    just before and read just after: 24 K2 launches, all on
+    ``flash_fwd_tc``, no other kernel; the logits and every cache equal to
+    the unsharded prefill's (``torch.equal``). Returns K2's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import prefill_step
+    cfg = get_config("internvl2_2b")
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    inputs = frontend_inputs(np, torch, cfg, 1, PREFILL_TEXT, dev, seed=4)
+    S = cfg.frontend.num_prefix_tokens + PREFILL_TEXT
+    ref_logits, ref_caches = prefill_step(params, cfg, inputs, S + 16)
+    ctx = make_ctx(mesh2)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill_step(params, cfg, inputs, S + 16, ctx=ctx)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counted}
+    tc = tensor_core[0].launches_tc
+    pairs = [(logits, ref_logits)] + [
+        (a, b) for kind in ref_caches
+        for c, r in zip(caches[kind], ref_caches[kind])
+        for a, b in zip(c, r)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    err = max(rel_err(a.float(), b.float()) for a, b in pairs)
+    want = cfg.n_layers
+    print(f"[sharded] 13d: {cfg.name} prefill_step(ctx=...) on a (1, 1) "
+          f"mesh, {S} positions: {prefill_s:.4f} s; launches "
+          f"{json.dumps(counts)}, {tc} on flash_fwd_tc; logits and "
+          f"{len(pairs) - 1} cache tensors "
+          f"{'equal' if equal else 'not equal'} to the unsharded prefill's "
+          f"(max rel {err:.3g})", flush=True)
+    if counts != {"hedm_reduce": 0, "flash_attention": want,
+                  "mamba2_scan": 0, "rwkv6_wkv": 0} or tc != want:
+        raise AssertionError(f"phase 13d: launches {counts}, {tc} on the "
+                             f"tensor cores; expected {want} K2")
+    if not equal:
+        raise AssertionError(f"phase 13d: the sharded prefill differs from "
+                             f"the unsharded one (max rel {err})")
+    seconds["13d_prefill"] = prefill_s
+    del params, logits, caches, ref_logits, ref_caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def sharded_phase(np, torch, dev, zero_counts, counted, tensor_core):
+    """Phase 13: the sharded train step, the pod branch, the
+    expert-parallel MoE and the sharded prefill, under the NCCL process
+    group of world size 1 that phase 12 opened. Returns K2's launches in
+    13d and the phase's seconds."""
+    from repro_torch.launch.mesh import make_mesh
+    seconds = {}
+    t_phase = time.perf_counter()
+    mesh2 = make_mesh((1, 1), ("data", "model"))
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    first = sharded_train_step(np, torch, dev, mesh2, seconds)
+    pod_train_step(np, torch, dev, mesh3, first, seconds)
+    moe_expert_parallel(np, torch, dev, mesh2, seconds)
+    launches = sharded_prefill(np, torch, dev, mesh2, zero_counts, counted,
+                               tensor_core, seconds)
+    seconds["13"] = time.perf_counter() - t_phase
+    return launches, seconds
+
+
+def mesh_phase(np, torch, dev, zero_counts, n_frames, counted,
+               tensor_core):
+    """Phases 12 and 13: 12a, 12b and 12c, then 13a-13d, under one NCCL
+    process group of world size 1 (one card), destroyed at the end;
+    everything allocated freed. Returns K1's launches on the staged path,
+    phase 12's seconds, K2's launches in 13d and phase 13's seconds."""
     import tempfile
     from datetime import timedelta
     import torch.distributed as dist
@@ -1713,12 +2065,16 @@ def mesh_phase(np, torch, dev, zero_counts, n_frames):
             model = resharded_restore(torch, dev, d, seconds)
             dcn_reduction(np, torch, dev, model, seconds)
             del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds["12"] = time.perf_counter() - t_phase
+            sharded_launches, seconds13 = sharded_phase(
+                np, torch, dev, zero_counts, counted, tensor_core)
         finally:
             dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    seconds["12"] = time.perf_counter() - t_phase
-    return launches, seconds
+    return launches, seconds, sharded_launches, seconds13
 
 
 def main(n_frames=FRAMES, grid_points=GRID_POINTS):
@@ -2010,9 +2366,13 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     check_trainer_restart(np, torch, dev, zero_counts, counted)
     # 12. device-level staging, the resharded restore and the int8 DCN
     # reduction over NCCL at world size 1
-    staged_launches, mesh_s = mesh_phase(np, torch, dev, zero_counts,
-                                         n_frames)
+    # 13. the sharded train step, the pod branch, the expert-parallel MoE
+    # and the sharded prefill, in the same group
+    staged_launches, mesh_s, sharded_launches, sharded_s = mesh_phase(
+        np, torch, dev, zero_counts, n_frames, counted, tensor_core)
     print("[main] phases (s), phase 12: " + json.dumps(mesh_s), flush=True)
+    print("[main] phases (s), phase 13: " + json.dumps(sharded_s),
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
 
     kernels = [{
@@ -2048,7 +2408,10 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                  for shape in FLASH_SHAPES_TIMED]
                 if name == "flash_attention" else [])), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"sharded_launches": sharded_launches,
+                "sharded_launches_tc": sharded_launches}
+               if name == "flash_attention" else {})})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

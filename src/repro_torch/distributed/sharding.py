@@ -32,23 +32,42 @@ unchanged. :func:`param_pspecs` reads only names and shapes: a model built
 on the meta device (``Model(cfg, None, "meta")``) costs no memory at full
 size.
 
-The mesh context inside the model (``ShardCtx.constrain``,
-:func:`fsdp_gather`) comes with the sharded train step and raises until
-then.
+Inside the model (the sharded train step and prefill), a :class:`ShardCtx`
+made from a ``DeviceMesh`` carries the mesh. The parameters are laid onto
+it by :func:`shard_model` as ``nn.Parameter(DTensor)`` with the rule's
+placements (storage FSDP x TP). The model computes on plain local tensors:
+:func:`fsdp_gather` gives each weight of a block with its fsdp axis
+gathered (the reference's ZeRO-3 prefetch; the gather's backward is the
+grads' reduce-scatter), and the mixers run on their tp shard with the
+collectives written out (:meth:`ShardCtx.psum` after a row-parallel
+product, :meth:`ShardCtx.gather` and :meth:`ShardCtx.constrain` where the
+reference constrains an activation). Each collective is an autograd
+function whose backward is its transpose, as in the reference's
+``shard_map``: an all-gather's backward reduce-scatters, a psum's backward
+is a psum. So every rank's cotangent of a replicated value is its part of
+the sum, a rank weights its loss by 1 / (ranks the grads are summed over),
+and the grad of a parameter replicated over an axis is summed over that
+axis after backward (`repro_torch.train.train_step`). A context without a
+mesh (the namespace the spec functions take) raises on every collective;
+nothing falls back to one rank.
 """
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
+import torch
+import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
-MESH_CTX_TODO = ("sharding constraints inside the model are not ported yet: "
-                 "ROADMAP §1 item 8 (the sharded train step)")
+NO_MESH = ("this ShardCtx has no DeviceMesh (it names axes only, as the "
+           "spec functions take it): make it with make_ctx of a "
+           "torch.distributed DeviceMesh to compute over the mesh")
 
 
 class P(tuple):
@@ -65,15 +84,24 @@ class P(tuple):
         return f"P{tuple.__repr__(self)}"
 
 
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry as a tuple of axis names (``None`` -> ())."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
 @dataclass(frozen=True)
 class ShardCtx:
-    """The mesh's axis names and sizes, and the roles of its axes."""
+    """The mesh's axis names and sizes, the roles of its axes, and the
+    ``DeviceMesh`` itself (None for a context that only names axes)."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     dp_axes: Tuple[str, ...] = ("data",)
     fsdp_axis: Optional[str] = "data"
     tp_axis: Optional[str] = "model"
     sequence_parallel: bool = False
+    mesh: Any = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -90,8 +118,179 @@ class ShardCtx:
             size *= self.shape[a]
         return size
 
-    def constrain(self, x, *spec):
-        raise NotImplementedError(MESH_CTX_TODO)
+    # -- this rank on the mesh ----------------------------------------------
+    def _mesh(self):
+        if self.mesh is None:
+            raise RuntimeError(NO_MESH)
+        return self.mesh
+
+    def size(self, axes) -> int:
+        """Ranks along ``axes`` (a name, a tuple of names or None)."""
+        n = 1
+        for a in _axes(axes):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's flat coordinate along ``axes``, the first axis
+        outermost (the order in which a dim sharded over several axes is
+        split)."""
+        mesh = self._mesh()
+        i = 0
+        for a in _axes(axes):
+            i = i * self.shape[a] + mesh.get_local_rank(a)
+        return i
+
+    @property
+    def tp_rank(self) -> int:
+        return self.index(self.tp_axis) if self.tp_axis else 0
+
+    def group(self, axis: str):
+        return self._mesh().get_group(axis)
+
+    # -- activations ----------------------------------------------------------
+    def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """This rank's block of ``x`` under ``spec``: each dim whose entry
+        names axes is cut into as many blocks and this rank's is kept (the
+        dim must hold its full extent; its backward pads with zeros). The
+        counterpart of the reference's ``with_sharding_constraint`` at the
+        points where an activation goes from replicated to sharded."""
+        self._mesh()
+        for d, entry in enumerate(spec):
+            n = self.size(entry)
+            if n > 1:
+                if x.shape[d] % n:
+                    raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                     f"split over {entry!r} ({n} ranks)")
+                x = x.chunk(n, dim=d)[self.index(entry)]
+        return x
+
+    def gather(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """The inverse of :meth:`constrain`: each dim whose entry names axes
+        all-gathered over them (backward: the reduce-scatter)."""
+        self._mesh()
+        for d, entry in enumerate(spec):
+            for a in reversed(_axes(entry)):
+                x = all_gather(x, d, self, a)
+        return x
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Sum over the ranks along ``axes`` (backward: the same sum)."""
+        self._mesh()
+        for a in _axes(axes):
+            x = psum(x, self, a)
+        return x
+
+    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self.psum(x, axes) / self.size(axes)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        """Sum over ``axis`` and keep this rank's block of ``dim``
+        (backward: the all-gather)."""
+        self._mesh()
+        if self.shape[axis] == 1:
+            return x
+        return _ReduceScatter.apply(x, dim, self.group(axis),
+                                    self.shape[axis])
+
+
+# ---------------------------------------------------------------------------
+# collectives with their transposes as backward
+# ---------------------------------------------------------------------------
+
+def _gather_fwd(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _scatter_fwd(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _sum_fwd(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fn_ctx, x, dim, group, n):
+        fn_ctx.args = (dim, group, n)
+        return _gather_fwd(x, dim, group, n)
+
+    @staticmethod
+    def backward(fn_ctx, g):
+        return _scatter_fwd(g, *fn_ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fn_ctx, x, dim, group, n):
+        fn_ctx.args = (dim, group, n)
+        return _scatter_fwd(x, dim, group, n)
+
+    @staticmethod
+    def backward(fn_ctx, g):
+        return _gather_fwd(g, *fn_ctx.args), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fn_ctx, x, group):
+        fn_ctx.group = group
+        return _sum_fwd(x, group)
+
+    @staticmethod
+    def backward(fn_ctx, g):
+        return _sum_fwd(g, fn_ctx.group), None
+
+
+def all_gather(x: torch.Tensor, dim: int, ctx: ShardCtx,
+               axis: str) -> torch.Tensor:
+    """``x`` concatenated along ``dim`` over the ranks of ``axis`` (x itself
+    on an axis of one rank)."""
+    n = ctx.shape[axis]
+    return x if n == 1 else _AllGather.apply(x, dim, ctx.group(axis), n)
+
+
+def psum(x: torch.Tensor, ctx: ShardCtx, axis: str) -> torch.Tensor:
+    n = ctx.shape[axis]
+    return x if n == 1 else _PSum.apply(x, ctx.group(axis))
+
+
+def tp_part(ctx: Optional[ShardCtx], w: torch.Tensor, dim: int,
+            full: int) -> torch.Tensor:
+    """This tp rank's block of ``w`` along ``dim`` (``full`` entries long in
+    the model): ``w`` itself when it is already the block (its rule put it
+    on the tp axis), else the block cut from the whole (a replicated
+    weight; its grad is then summed over tp after backward)."""
+    if ctx is None or ctx.tp_size == 1:
+        return w
+    if w.shape[dim] == full:
+        return ctx.constrain(w, *((None,) * dim + (ctx.tp_axis,)))
+    if w.shape[dim] * ctx.tp_size == full:
+        return w
+    raise ValueError(f"dim {dim} of {tuple(w.shape)} is neither {full} nor "
+                     f"its block over {ctx.tp_size} tp ranks")
+
+
+def tp_whole(ctx: Optional[ShardCtx], w: torch.Tensor, dim: int,
+             full: int) -> torch.Tensor:
+    """``w`` whole along ``dim``: gathered over tp when its rule put it
+    there."""
+    if ctx is None or w.shape[dim] == full:
+        return w
+    return ctx.gather(w, *((None,) * dim + (ctx.tp_axis,)))
 
 
 # a rule: (path regex, spec builder). Spec entries are logical axis names
@@ -314,16 +513,19 @@ def cache_pspecs(cfg: ModelConfig, caches: Any, ctx: ShardCtx) -> Any:
 
 
 def make_ctx(mesh, sequence_parallel: bool = False) -> ShardCtx:
-    """The context of a ``DeviceMesh`` (or of anything with its
-    ``mesh_dim_names`` and ``shape``)."""
+    """The context of a ``DeviceMesh``, which it carries; or, with no mesh,
+    of anything with its ``mesh_dim_names`` and ``shape`` (axes only: the
+    spec functions take it, every collective raises)."""
     axes = tuple(mesh.mesh_dim_names)
     if "pod" in axes:
         dp = ("pod", "data")
     else:
         dp = ("data",)
     return ShardCtx(axis_names=axes, axis_sizes=tuple(mesh.shape),
-                    dp_axes=dp, fsdp_axis="data", tp_axis="model",
-                    sequence_parallel=sequence_parallel)
+                    dp_axes=dp, fsdp_axis="data",
+                    tp_axis="model" if "model" in axes else None,
+                    sequence_parallel=sequence_parallel,
+                    mesh=mesh if hasattr(mesh, "get_group") else None)
 
 
 # ---------------------------------------------------------------------------
@@ -362,16 +564,80 @@ def distribute_params(params: Any, specs: Any, mesh) -> Any:
     return _rebuild(params, placed)
 
 
+def _block_of(full: torch.Tensor, mesh, places: Sequence) -> torch.Tensor:
+    """This rank's block of ``full`` under DTensor ``places`` on ``mesh``:
+    cut along each ``Shard`` dim, mesh dims in order."""
+    for i, pl in enumerate(places):
+        if isinstance(pl, Shard):
+            full = full.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+    return full.clone()
+
+
+@torch.no_grad()
+def shard_model(model: nn.Module, cfg: ModelConfig,
+                ctx: ShardCtx) -> nn.Module:
+    """Lay ``model``'s parameters onto ``ctx``'s mesh in place: each one
+    becomes an ``nn.Parameter`` holding a ``DTensor`` with the placements
+    of its rule (:func:`param_pspecs`), its local block cut from the
+    parameter this rank holds (every rank must hold the same values: the
+    same seed, or a checkpoint), with no communication. Returns ``model``."""
+    mesh = ctx._mesh()
+    specs = param_pspecs(cfg, model, ctx)
+    for mod_name, mod in model.named_modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            full_name = f"{mod_name}.{name}" if mod_name else name
+            places = placements(specs[full_name], mesh)
+            local = _block_of(p.detach(), mesh, places)
+            setattr(mod, name, nn.Parameter(
+                DTensor.from_local(local, mesh, places, run_check=False),
+                requires_grad=p.requires_grad))
+    return model
+
+
 # ---------------------------------------------------------------------------
 # explicit FSDP weight prefetch
 # ---------------------------------------------------------------------------
 
-def fsdp_gather(subtree: Any, cfg: ModelConfig, ctx: Optional[ShardCtx],
-                prefix: str = "") -> Any:
-    """The reference constrains every weight of ``subtree`` to its rule
-    spec with the fsdp axis removed (ZeRO-3 prefetch inside the model);
-    without a context it returns ``subtree``. With one it raises until the
-    sharded train step is ported."""
-    if ctx is None or ctx.fsdp_axis is None:
+def _gathered(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """A parameter as a plain local tensor with its fsdp axis gathered: a
+    ``DTensor``'s local block (differentiable) all-gathered over the fsdp
+    axis along the dim placed there; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    local = t.to_local()
+    names = tuple(t.device_mesh.mesh_dim_names)
+    for i, pl in enumerate(t.placements):
+        if names[i] == ctx.fsdp_axis and isinstance(pl, Shard):
+            local = all_gather(local, pl.dim, ctx, ctx.fsdp_axis)
+    return local
+
+
+def fsdp_gather(subtree: Any, cfg: ModelConfig,
+                ctx: Optional[ShardCtx]) -> Any:
+    """Every weight of ``subtree`` (a module, a dict or list of them, or a
+    tensor) with its fsdp axis removed: the reference constrains each to
+    its rule spec without the fsdp axis (ZeRO-3 prefetch inside the model);
+    here each ``DTensor`` parameter becomes its local block all-gathered
+    over the fsdp axis, so it arrives at the point of use and its grad is
+    reduce-scattered back. Modules come back as dicts of their parameters
+    and children, lists as lists; a plain tensor (an unsharded model, or a
+    weight already gathered) passes through. Without a context it returns
+    ``subtree``; a context without a mesh raises."""
+    if ctx is None:
         return subtree
-    raise NotImplementedError(MESH_CTX_TODO)
+    ctx._mesh()
+
+    def walk(tree):
+        if isinstance(tree, nn.ModuleList):
+            return [walk(m) for m in tree]
+        if isinstance(tree, nn.Module):
+            out = {n: walk(p) for n, p in tree.named_parameters(
+                recurse=False)}
+            out.update((n, walk(m)) for n, m in tree.named_children())
+            return out
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return _gathered(tree, ctx)
+    return walk(subtree)

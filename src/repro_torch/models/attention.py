@@ -25,18 +25,30 @@ reference's own XLA paths instead, in plain PyTorch: ``grouped_sdpa`` over a
 bias, or ``blocked_grouped_sdpa`` from ``BLOCKED_THRESHOLD`` tokens on; for
 MLA the einsum path (``mla_core``), or ``blocked_mla_core`` from that
 length. The kernels have no backward.
+
+Over a mesh (``ctx``) each function runs on this rank's batch rows and,
+where the heads divide tp, on its block of heads (the reference's
+constraints of q, k and v over tp): q, k, v and the output projection on
+the tp blocks of their weights, the output summed over tp. Where the kv
+heads do not divide tp, k and v are computed whole, repeated to the query
+heads and cut to this rank's block, as the reference does. Where the query
+heads do not divide tp, every tp rank computes all heads. The prefill
+hands the kernel plain contiguous local tensors, and its caches come back
+whole (gathered over tp).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Params, apply_rope, const, dense_init,
-                                       dt, rmsnorm_nohead)
+                                       dt, rmsnorm_nohead, tp_region)
 
 NEG_INF = -1e30
 BLOCKED_THRESHOLD = 8192     # plain paths: blocked from this length on
@@ -150,40 +162,102 @@ def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          cfg: ModelConfig, use_kernels: bool) -> torch.Tensor:
+    """The attention core, (B,S,H,hd): the kernel op, or the reference's
+    plain paths (``grouped_sdpa`` over a bias, ``blocked_grouped_sdpa``
+    from ``BLOCKED_THRESHOLD`` tokens on)."""
+    S, hd = q.shape[1], q.shape[-1]
+    win, scale = cfg.sliding_window, hd ** -0.5
+    if use_kernels:
+        return ops.flash_attention(q, k, v, causal=cfg.causal, window=win,
+                                   scale=scale)
+    if S >= BLOCKED_THRESHOLD:
+        return blocked_grouped_sdpa(q, k, v, causal=cfg.causal, window=win,
+                                    scale=scale)
+    return grouped_sdpa(q, k, v, attention_bias(
+        S, S, causal=cfg.causal, window=win, device=q.device), scale)
+
+
 def _attend(params, cfg: ModelConfig, x: torch.Tensor,
-            positions: torch.Tensor):
-    """Full-sequence attention through the kernel op; returns the output
-    projection and the keys and values for a cache."""
+            positions: torch.Tensor, use_kernels: bool = True):
+    """Full-sequence attention; returns the output projection and the keys
+    and values for a cache."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x, positions)
-    o = ops.flash_attention(q, k, v, causal=cfg.causal,
-                            window=cfg.sliding_window, scale=hd ** -0.5)
-    return o.reshape(B, S, cfg.n_heads * hd) @ params["wo"], k, v
+    o = _sdpa(q, k, v, cfg, use_kernels)
+    return o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) \
+        @ params["wo"], k, v
+
+
+def _local_cfg(cfg: ModelConfig, n_heads: int, n_kv_heads: int
+               ) -> ModelConfig:
+    """``cfg`` with a tp rank's head counts (the head dim kept)."""
+    return dataclasses.replace(cfg, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                               head_dim=cfg.resolved_head_dim)
+
+
+def _set(p: dict, ctx, fn, dims) -> dict:
+    """``p`` with ``fn(ctx, w, dim, full)`` applied to each named weight it
+    has (``dims``: name -> (dim, full))."""
+    return {**p, **{n: fn(ctx, p[n], d, f) for n, (d, f) in dims.items()
+                    if n in p}}
+
+
+def _gqa_split(params, cfg: ModelConfig, ctx):
+    """(this tp rank's weights, its config, the kv repeat G or 0, whether
+    its output is a part of a sum over tp)."""
+    tp, nh, nkv = ctx.tp_size, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    q_dims = {"wq": (1, nh * hd), "bq": (0, nh * hd), "wo": (0, nh * hd)}
+    kv_dims = {"wk": (1, nkv * hd), "wv": (1, nkv * hd),
+               "bk": (0, nkv * hd), "bv": (0, nkv * hd)}
+    if nh % tp:
+        p = _set(_set(params, ctx, tp_whole, q_dims), ctx, tp_whole, kv_dims)
+        return p, cfg, 0, False
+    p = _set(params, ctx, tp_part, q_dims)
+    if nkv % tp == 0:
+        return (_set(p, ctx, tp_part, kv_dims),
+                _local_cfg(cfg, nh // tp, nkv // tp), 0, tp > 1)
+    # GQA with kv heads < tp: k and v whole, repeated to the query heads
+    return (_set(p, ctx, tp_whole, kv_dims), _local_cfg(cfg, nh // tp, nkv),
+            nh // nkv, True)
+
+
+def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, use_kernels: bool, ctx):
+    """Attention over the mesh: (output in the residual's layout, k, v of
+    this rank's kv heads, or of all of them where they do not divide
+    tp)."""
+    p, lcfg, G, partial = _gqa_split(fsdp_gather(params, cfg, ctx), cfg, ctx)
+
+    def fn(h):
+        B, S, _ = h.shape
+        q, k, v = _project_qkv(p, lcfg, h, positions)
+        kq, vq = k, v
+        if G:
+            kq, vq = (ctx.constrain(t.repeat_interleave(G, dim=2), None,
+                                    None, ctx.tp_axis, None).contiguous()
+                      for t in (k, v))
+        o = _sdpa(q, kq, vq, lcfg, use_kernels)
+        return o.reshape(B, S, lcfg.n_heads * lcfg.resolved_head_dim) \
+            @ p["wo"], k, v
+    return tp_region(ctx, (fn, partial), x)
 
 
 def attention(params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor,
-              use_kernels: bool = True) -> torch.Tensor:
+              positions: torch.Tensor, use_kernels: bool = True,
+              ctx=None) -> torch.Tensor:
     """Full-sequence attention. x: (B,S,D). Through the kernel op, or with
     ``use_kernels=False`` (training) the reference's plain paths:
     ``grouped_sdpa`` over a bias, ``blocked_grouped_sdpa`` from
-    ``BLOCKED_THRESHOLD`` tokens on."""
+    ``BLOCKED_THRESHOLD`` tokens on. Over a mesh (``ctx``), x is the
+    residual's local block and so is the output."""
     if cfg.attention == "mla":
-        return mla_attention(params, cfg, x, positions, use_kernels)
-    if use_kernels:
-        return _attend(params, cfg, x, positions)[0]
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    win, scale = cfg.sliding_window, hd ** -0.5
-    if S >= BLOCKED_THRESHOLD:
-        out = blocked_grouped_sdpa(q, k, v, causal=cfg.causal, window=win,
-                                   scale=scale)
-    else:
-        out = grouped_sdpa(q, k, v, attention_bias(
-            S, S, causal=cfg.causal, window=win, device=x.device), scale)
-    return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
+        return mla_attention(params, cfg, x, positions, use_kernels, ctx)
+    if ctx is not None:
+        return _attention_tp(params, cfg, x, positions, use_kernels, ctx)[0]
+    return _attend(params, cfg, x, positions, use_kernels)[0]
 
 
 def blocked_grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -288,18 +362,19 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attention_prefill(params, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, capacity: int
+                      positions: torch.Tensor, capacity: int, ctx=None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """Like :func:`attention`, but also returns the populated KV cache for
     decode: absolute slots, or for a sliding window a ring where position p
-    lives at slot p % cap; for MLA the latent caches at slots [0, S)."""
+    lives at slot p % cap; for MLA the latent caches at slots [0, S). Over
+    a mesh the cache holds every kv head of this rank's rows."""
     B, S, _ = x.shape
     dtype = dt(cfg.compute_dtype)
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     if cfg.attention == "mla":
         # the latents once: the reference computes them a second time for
         # the cache, to the same values
-        out, c_kv, k_rope = _mla_attend(params, cfg, x, positions)
+        out, c_kv, k_rope = _mla(params, cfg, x, positions, True, ctx)
         if S > capacity:
             raise ValueError(f"prompt of {S} tokens exceeds the cache "
                              f"capacity {capacity}")
@@ -307,7 +382,12 @@ def attention_prefill(params, cfg: ModelConfig, x: torch.Tensor,
         cache.k[:, :S] = c_kv
         cache.v[:, :S] = k_rope
         return out, cache._replace(length=lengths)
-    out, k, v = _attend(params, cfg, x, positions)
+    if ctx is None:
+        out, k, v = _attend(params, cfg, x, positions)
+    else:
+        out, k, v = _attention_tp(params, cfg, x, positions, True, ctx)
+        if k.shape[2] != cfg.n_kv_heads:         # this rank's kv heads
+            k, v = (ctx.gather(t, None, None, ctx.tp_axis) for t in (k, v))
     win = cfg.sliding_window
     if win and win < max(S, capacity):
         cap = min(capacity, win)
@@ -386,11 +466,33 @@ def _mla_attend(params, cfg: ModelConfig, x: torch.Tensor,
     return out, c_kv, k_rope
 
 
+def _mla(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+         use_kernels: bool, ctx):
+    """:func:`_mla_attend`, over the mesh when ``ctx``: this rank's block of
+    heads (q, k_nope and v over tp, as the reference constrains them) where
+    they divide tp, the latents whole, the output summed over tp."""
+    if ctx is None:
+        return _mla_attend(params, cfg, x, positions, use_kernels)
+    m, H, tp = cfg.mla, cfg.n_heads, ctx.tp_size
+    dims = {"wq": (1, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            "w_uk": (1, H * m.qk_nope_head_dim),
+            "w_uv": (1, H * m.v_head_dim), "wo": (0, H * m.v_head_dim)}
+    params = fsdp_gather(params, cfg, ctx)
+    if H % tp:
+        p, lcfg = _set(params, ctx, tp_whole, dims), cfg
+    else:
+        p = _set(params, ctx, tp_part, dims)
+        lcfg = _local_cfg(cfg, H // tp, cfg.n_kv_heads)
+    return tp_region(ctx, (lambda h: _mla_attend(p, lcfg, h, positions,
+                                                 use_kernels),
+                           H % tp == 0 and tp > 1), x)
+
+
 def mla_attention(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor,
-                  use_kernels: bool = True) -> torch.Tensor:
+                  positions: torch.Tensor, use_kernels: bool = True,
+                  ctx=None) -> torch.Tensor:
     """Full-sequence MLA. x: (B,S,D)."""
-    return _mla_attend(params, cfg, x, positions, use_kernels)[0]
+    return _mla(params, cfg, x, positions, use_kernels, ctx)[0]
 
 
 def mla_core(q_nope, q_rope, k_nope, k_rope, v, scale: float,

@@ -8,6 +8,11 @@ drawn from a ``torch.Generator`` the caller seeded; with no generator they
 are left uninitialised for `repro_torch.models.convert` to fill. Every
 parameter is made with ``requires_grad=False``, so serving builds no graph;
 `repro_torch.train.train_step.init_train_state` turns it on for training.
+
+Over a mesh (``ctx``, a `repro_torch.distributed.sharding.ShardCtx` with
+its ``DeviceMesh``) the layer functions take plain local tensors: the
+embedding looks up its vocab block and sums over tp, the MLP runs its
+hidden block and sums over tp (see :func:`tp_region`).
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import tp_part, tp_whole
 
 
 def dt(name: str) -> torch.dtype:
@@ -141,9 +148,60 @@ class MLP(Params):
         self.w_down = dense_init(gen, d_ff, d_model, dtype, device)
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
+def _mlp(params, x: torch.Tensor) -> torch.Tensor:
     hidden = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return hidden @ params["w_down"]
+
+
+def mlp(params, x: torch.Tensor, ctx=None,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU MLP. Over a mesh, ``x`` is the residual's local block and
+    ``d_ff`` the hidden width: the hidden dim splits over tp (column- then
+    row-parallel, one sum over tp) where it divides, else every tp rank
+    computes the whole."""
+    if ctx is None:
+        return _mlp(params, x)
+    return tp_region(ctx, _mlp_split(params, ctx, d_ff), x)
+
+
+def _mlp_split(params, ctx, d_ff: int):
+    """``(fn, partial)`` of the MLP on this tp rank (see tp_region)."""
+    if d_ff % ctx.tp_size == 0:
+        p = {"w_gate": tp_part(ctx, params["w_gate"], 1, d_ff),
+             "w_up": tp_part(ctx, params["w_up"], 1, d_ff),
+             "w_down": tp_part(ctx, params["w_down"], 0, d_ff)}
+        return (lambda h: _mlp(p, h)), ctx.tp_size > 1
+    p = {"w_gate": tp_whole(ctx, params["w_gate"], 1, d_ff),
+         "w_up": tp_whole(ctx, params["w_up"], 1, d_ff),
+         "w_down": tp_whole(ctx, params["w_down"], 0, d_ff)}
+    return (lambda h: _mlp(p, h)), False
+
+
+def tp_region(ctx, split, x: torch.Tensor) -> torch.Tensor:
+    """Run a tp region on the residual's local block ``x``. ``split`` is
+    ``(fn, partial)``: ``fn`` maps the region's input (every position of
+    this rank's rows) to this rank's output, which is a part of the sum
+    over tp when ``partial``, else the whole; it may return a tuple, whose
+    first item is the output and whose other items come back after it as
+    they are. Without sequence parallelism the residual is replicated over
+    tp: the input is ``x`` and a partial output is summed over tp (the
+    row-parallel all-reduce). With it the residual holds this rank's block
+    of positions: the input is gathered over tp, and the output
+    reduce-scattered (or, when whole, cut) back to the block, as
+    Megatron-SP does."""
+    fn, partial = split
+    sp = ctx.sequence_parallel and ctx.tp_size > 1
+    h = ctx.gather(x, None, ctx.tp_axis) if sp else x
+    y = fn(h)
+    rest = ()
+    if isinstance(y, tuple):                 # (output, what passes through)
+        y, *rest = y
+    if sp:
+        y = (ctx.reduce_scatter(y, 1, ctx.tp_axis) if partial
+             else ctx.constrain(y, None, ctx.tp_axis))
+    elif partial:
+        y = ctx.psum(y, ctx.tp_axis)
+    return (y, *rest) if rest else y
 
 
 # ---------------------------------------------------------------------------
@@ -157,5 +215,18 @@ class Embedding(Params):
         self.table = embed_init(gen, vocab, d_model, dtype, device)
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params, tokens: torch.Tensor, ctx=None,
+          rows: Optional[int] = None) -> torch.Tensor:
+    """Token embeddings. Over a mesh, where the table holds this tp rank's
+    block of the ``rows`` vocab rows (the rule ``("tp*", None)``), each tp
+    rank looks up the tokens in its block, zeros elsewhere, and the blocks
+    sum over tp; a whole table is looked up as it is."""
+    table = params["table"]
+    if ctx is None or rows is None or table.shape[0] == rows:
+        return table[tokens]
+    n = table.shape[0]
+    ids = tokens - ctx.tp_rank * n
+    ok = (ids >= 0) & (ids < n)
+    out = torch.where(ok[..., None], table[ids.clamp(0, n - 1)],
+                      torch.zeros((), dtype=table.dtype, device=table.device))
+    return ctx.psum(out, ctx.tp_axis)

@@ -17,6 +17,14 @@ log-decay a_t = dt_t * A_h with A negative.
     PyTorch (the recurrence, and the chunked form with its rounding of the
     intra-chunk weights to x's type).
   * ``mamba2_decode``: the single-token step on the carried state.
+
+Over a mesh (``ctx``) the full-sequence mixer runs on this rank's batch
+rows and, where the heads divide tp, on its block of heads (the reference
+constrains x and dt over tp): z, x, dt, the x conv, the per-head constants
+and the rows of ``out_proj`` from their tp blocks, B and C whole and cut
+to the groups of those heads, the gated RMSNorm over all of ``d_inner``
+(its mean of squares summed over tp), and the output summed over tp. The
+prefill's state comes back whole (gathered over tp).
 """
 from __future__ import annotations
 
@@ -26,9 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Params, RMSNorm, const, dense_init, dt,
-                                       param, rmsnorm)
+                                       param, rmsnorm, tp_region)
 
 
 class SSMState(NamedTuple):
@@ -167,14 +176,71 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor,
 
 
 def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor,
-                   use_kernels: bool = True
+                   use_kernels: bool = True, ctx=None
                    ) -> Tuple[torch.Tensor, SSMState]:
     """Full-sequence mixer, u (B,L,D) -> (B,L,D), and the SSM state (final
     h and conv tails) for decode. The scan runs on the kernel op, or with
-    ``use_kernels=False`` as :func:`ssd_chunked`."""
+    ``use_kernels=False`` as :func:`ssd_chunked`. Over a mesh, u is the
+    residual's local block and so is the output; the state is whole."""
+    return _mamba2(params, cfg, u, use_kernels, ctx, True)
+
+
+def _mamba2(params, cfg: ModelConfig, u: torch.Tensor, use_kernels: bool,
+            ctx, whole_state: bool) -> Tuple[torch.Tensor, SSMState]:
+    """:func:`mamba2_prefill`; over a mesh the state is gathered whole only
+    when ``whole_state`` (the prefill), else left as this rank's block."""
+    if ctx is None:
+        return _mixer(params, cfg, u, use_kernels, _dims(cfg), 0,
+                      lambda p, y: rmsnorm(p, y, cfg.norm_eps))
+    d_inner, H, G = _dims(cfg)
+    params = fsdp_gather(params, cfg, ctx)
+    tp, r = ctx.tp_size, ctx.tp_rank
+    HG = H // G
+    Hl = H // tp
+    dims = {"in_z": (1, d_inner), "in_x": (1, d_inner), "in_dt": (1, H),
+            "conv_x": (1, d_inner), "conv_bx": (0, d_inner),
+            "dt_bias": (0, H), "A_log": (0, H), "D": (0, H),
+            "out_proj": (0, d_inner)}
+    split = H % tp == 0 and (Hl % HG == 0 or HG % Hl == 0)
+    fn = tp_part if split else tp_whole
+    p = {**params, **{n: fn(ctx, params[n], d, f)
+                      for n, (d, f) in dims.items()}}
+    scale = params["norm"]["scale"]
+    p["norm"] = {"scale": fn(ctx, scale, 0, d_inner)}
+    if split and tp > 1:
+        Gl = max(1, Hl // HG)
+        local = (d_inner // tp, Hl, Gl)
+        g0 = r * Hl // HG
+
+        def norm(pn, y):
+            # RMSNorm over all of d_inner: the mean of squares summed over tp
+            ss = torch.sum(torch.square(y), dim=-1, keepdim=True,
+                           dtype=torch.float32)
+            inv = torch.rsqrt(ctx.psum(ss, ctx.tp_axis) / d_inner
+                              + cfg.norm_eps).to(y.dtype)
+            return y * inv * pn["scale"].to(y.dtype)
+        out, st = tp_region(ctx, (lambda h: _mixer(
+            p, cfg, h, use_kernels, local, g0, norm), True), u)
+        if not whole_state:
+            return out, st
+        hs = st.h.reshape((st.h.shape[0], Hl) + st.h.shape[3:])
+        return out, st._replace(
+            h=ctx.gather(hs, None, ctx.tp_axis).reshape(
+                (hs.shape[0], G, HG) + hs.shape[2:]),
+            conv_x=ctx.gather(st.conv_x, None, None, ctx.tp_axis))
+    return tp_region(ctx, (lambda h: _mixer(
+        p, cfg, h, use_kernels, _dims(cfg), 0,
+        lambda pn, y: rmsnorm(pn, y, cfg.norm_eps)), False), u)
+
+
+def _mixer(params, cfg: ModelConfig, u: torch.Tensor, use_kernels: bool,
+           dims, g0: int, norm) -> Tuple[torch.Tensor, SSMState]:
+    """The mixer over ``dims`` = (d_inner, heads, groups) of the weights it
+    is given (a tp rank's block, or all), B and C cut to the groups from
+    ``g0``; ``norm(params, y)`` is the gated RMSNorm."""
     s = cfg.ssm
     B, L, _ = u.shape
-    d_inner, H, G = _dims(cfg)
+    d_inner, H, G = dims
     K = s.d_conv - 1
     z = u @ params["in_z"]
     xp, Bp, Cp = u @ params["in_x"], u @ params["in_B"], u @ params["in_C"]
@@ -184,7 +250,11 @@ def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor,
     dt_ = F.softplus((u @ params["in_dt"]).float() + params["dt_bias"])
     x = x.reshape(B, L, H, s.head_dim)
     A = -torch.exp(params["A_log"])
-    Bm, Cm = Bm.reshape(B, L, G, s.d_state), Cm.reshape(B, L, G, s.d_state)
+    Bm = Bm.reshape(B, L, -1, s.d_state)
+    Cm = Cm.reshape(B, L, -1, s.d_state)
+    if Bm.shape[2] != G:                 # this tp rank's groups
+        Bm = Bm[:, :, g0:g0 + G].contiguous()
+        Cm = Cm[:, :, g0:g0 + G].contiguous()
     if use_kernels:
         y, h = ops.mamba2_scan(x, dt_, A, Bm, Cm, chunk=s.chunk)
     else:
@@ -194,8 +264,7 @@ def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor,
                            Cm, chunk=pick_chunk(L, s.chunk))
         y = y.reshape(B, L, H, s.head_dim)
     y = y + x * params["D"][None, None, :, None].to(y.dtype)
-    y = rmsnorm(params["norm"], y.reshape(B, L, d_inner) * F.silu(z),
-                cfg.norm_eps)
+    y = norm(params["norm"], y.reshape(B, L, d_inner) * F.silu(z))
     out = y @ params["out_proj"]
     cdt = dt(cfg.compute_dtype)
 
@@ -210,9 +279,9 @@ def mamba2_prefill(params, cfg: ModelConfig, u: torch.Tensor,
 
 
 def mamba2_block(params, cfg: ModelConfig, u: torch.Tensor,
-                 use_kernels: bool = True) -> torch.Tensor:
+                 use_kernels: bool = True, ctx=None) -> torch.Tensor:
     """Full-sequence Mamba2 mixer. u: (B,L,D) -> (B,L,D)."""
-    return mamba2_prefill(params, cfg, u, use_kernels)[0]
+    return _mamba2(params, cfg, u, use_kernels, ctx, False)[0]
 
 
 # ---------------------------------------------------------------------------

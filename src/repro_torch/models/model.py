@@ -12,6 +12,12 @@ Counterpart of ``repro.models.model``. Inputs are dicts:
 ``forward`` runs the mixers on the kernels (prefill and serving) unless
 ``use_kernels=False``; ``loss_fn`` passes that, as the reference trains on
 its XLA paths: the kernels have no backward.
+
+Over a mesh (``ctx``) the inputs are this rank's batch rows; the token
+table is looked up in its tp block of vocab rows, the frontend and the
+head table are gathered whole (the CE runs on every tp rank; a
+vocab-parallel CE is later work), and the CE's sum and count are summed
+over the data-parallel axes, so the loss is that of the whole batch.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.distributed.sharding import fsdp_gather, tp_whole
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (Embedding, Params, RMSNorm, dense_init,
                                        dt, embed, rmsnorm)
@@ -85,23 +92,35 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_frontend(params, cfg: ModelConfig,
-                   inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+                   inputs: Dict[str, torch.Tensor], ctx=None) -> torch.Tensor:
     """The (B,S,D) input sequence from the modality inputs: token
     embeddings; for ``vision_patches`` the image embeddings through rmsnorm,
     fc1, tanh-gelu and fc2, cast to the embeddings' type and prepended; for
-    ``audio_frames`` the features through proj and rmsnorm."""
+    ``audio_frames`` the features through proj and rmsnorm. Over a mesh the
+    frontend's weights are gathered whole."""
     fe = cfg.frontend
+    d = cfg.d_model
+    f = None
+    if fe.kind != "none":
+        f = fsdp_gather(params["frontend"], cfg, ctx)
+        if ctx is not None:
+            f = {**f, **{n: tp_whole(ctx, f[n], 1, d)
+                         for n in ("fc1", "fc2", "proj") if n in f}}
     if fe.kind == "vision_patches":
-        f = params["frontend"]
         h = rmsnorm(f["norm"], inputs["image_embeds"], cfg.norm_eps)
         h = _dense(F.gelu(_dense(h, f["fc1"]), approximate="tanh"), f["fc2"])
-        txt = embed(params["embed"], inputs["tokens"])
+        txt = _embed(params, cfg, inputs["tokens"], ctx)
         return torch.cat([h.to(txt.dtype), txt], dim=1)
     if fe.kind == "audio_frames":
-        f = params["frontend"]
         return rmsnorm(f["norm"], _dense(inputs["features"], f["proj"]),
                        cfg.norm_eps)
-    return embed(params["embed"], inputs["tokens"])
+    return _embed(params, cfg, inputs["tokens"], ctx)
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           ctx) -> torch.Tensor:
+    return embed(fsdp_gather(params["embed"], cfg, ctx), tokens, ctx,
+                 padded_vocab(cfg.vocab))
 
 
 # ---------------------------------------------------------------------------
@@ -110,25 +129,38 @@ def apply_frontend(params, cfg: ModelConfig,
 
 def forward(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
             remat: bool = False, inference: bool = False,
-            use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            use_kernels: bool = True, ctx=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hidden states after the final norm (B,S,D), and the summed MoE aux
     loss. ``inference`` relaxes the MoE capacity, as prefill and decode do;
     ``remat`` checkpoints each block; ``use_kernels=False`` takes the plain
-    mixers (training)."""
-    x = apply_frontend(params, cfg, inputs).to(dt(cfg.compute_dtype))
+    mixers (training). Over a mesh (``ctx``) the inputs and the hidden
+    states are this rank's rows (with ``sequence_parallel`` the residual
+    holds this rank's block of positions between blocks; every position
+    comes back)."""
+    x = apply_frontend(params, cfg, inputs, ctx).to(dt(cfg.compute_dtype))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    sp = ctx is not None and ctx.sequence_parallel and ctx.tp_size > 1
+    if sp:
+        x = ctx.constrain(x, None, ctx.tp_axis)
     x, aux = tf.stack_forward(params["stack"], cfg, x, positions, inference,
-                              remat, use_kernels)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+                              remat, use_kernels, ctx)
+    x = rmsnorm(fsdp_gather(params["final_norm"], cfg, ctx), x, cfg.norm_eps)
+    if sp:
+        x = ctx.gather(x, None, ctx.tp_axis)
+    return x, aux
 
 
-def head_table(params, cfg: ModelConfig) -> torch.Tensor:
-    """(V padded, D) unembedding table."""
+def head_table(params, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """(V padded, D) unembedding table (over a mesh gathered whole)."""
+    v_pad = padded_vocab(cfg.vocab)
     if cfg.tie_embeddings:
-        return params["embed"]["table"]
-    return params["head"].T
+        table = fsdp_gather(params["embed"], cfg, ctx)["table"]
+        return table if ctx is None else tp_whole(ctx, table, 0, v_pad)
+    head = fsdp_gather(params["head"], cfg, ctx)
+    return (head if ctx is None else tp_whole(ctx, head, 1, v_pad)).T
 
 
 def _vocab_logits(x: torch.Tensor, table: torch.Tensor,
@@ -142,10 +174,11 @@ def _vocab_logits(x: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def logits(params, cfg: ModelConfig, x: torch.Tensor,
+           ctx=None) -> torch.Tensor:
     """fp32 logits of hidden states (..., D) over the padded vocab, the pad
     entries masked to -1e30."""
-    return _vocab_logits(x, head_table(params, cfg), cfg.vocab)
+    return _vocab_logits(x, head_table(params, cfg, ctx), cfg.vocab)
 
 
 def _ce_chunk(xb: torch.Tensor, table: torch.Tensor, lb: torch.Tensor,
@@ -167,6 +200,15 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     ``chunk`` (the last one short) each run under ``torch.utils.checkpoint``,
     so backward recomputes one chunk's fp32 logits at a time, as the
     reference's rematerialised scan does."""
+    tot, cnt = _ce_sums(x, table, labels, vocab, chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_sums(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+             vocab: int, chunk: int = 512
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed CE, count of labelled positions) of :func:`chunked_cross_
+    entropy`."""
     S = x.shape[1]
     chunk = min(chunk, S)
     table = table.float()
@@ -177,17 +219,20 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                           labels[:, c0:c0 + chunk], vocab,
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + c
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def loss_fn(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
-            remat: bool = True, aux_weight: float = 0.01
+            remat: bool = True, aux_weight: float = 0.01, ctx=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss on the plain mixers: next-token CE (the vision prefix's
     positions ignored), or a per-frame CE for an encoder (``causal=False``:
     no shift), plus ``aux_weight`` times the MoE aux loss. Returns (total,
-    {"ce", "aux"})."""
-    x, aux = forward(params, cfg, inputs, remat=remat, use_kernels=False)
+    {"ce", "aux"}). Over a mesh (``ctx``) the inputs are this rank's rows
+    and the loss is the whole batch's: the CE's sum and count summed over
+    the data-parallel axes, the aux the reference's sharded one."""
+    x, aux = forward(params, cfg, inputs, remat=remat, use_kernels=False,
+                     ctx=ctx)
     labels = inputs["labels"]
     if cfg.causal:
         if cfg.frontend.kind == "vision_patches":
@@ -196,7 +241,13 @@ def loss_fn(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
                                 dtype=labels.dtype, device=labels.device)
             labels = torch.cat([ignore, labels], dim=1)
         x, labels = x[:, :-1], labels[:, 1:]
-    ce = chunked_cross_entropy(x, head_table(params, cfg), labels, cfg.vocab)
+    table = head_table(params, cfg, ctx)
+    if ctx is None:
+        ce = chunked_cross_entropy(x, table, labels, cfg.vocab)
+    else:
+        tot, cnt = _ce_sums(x, table, labels, cfg.vocab)
+        ce = ctx.psum(tot, ctx.dp_axes) / torch.clamp(
+            ctx.psum(cnt, ctx.dp_axes), min=1.0)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

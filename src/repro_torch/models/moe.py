@@ -15,8 +15,15 @@ Counterpart of the single-device path of ``repro.models.moe``:
 
 The reference computes these with XLA ops, outside any Pallas kernel, so
 the port uses PyTorch's ``topk``, indexing, ``bmm`` and ``index_add_``.
-The expert-parallel dispatch over a mesh (the reference's
-``_moe_ffn_shardmap``) is not ported yet.
+
+Over a mesh (``ctx``) the FFN is the reference's expert-parallel
+``_moe_ffn_shardmap``: each rank runs its LOCAL experts (the tp block of
+the stacked weights, gathered over the fsdp axis) over its LOCAL batch
+rows, routing with the router over all E; one sum over tp combines the
+experts (and the shared experts' hidden block). The aux loss is each data
+shard's own Switch loss averaged over every mesh axis, as the reference's
+``pmean``: a product of two means per shard, so it is not the aux of the
+whole batch.
 """
 from __future__ import annotations
 
@@ -27,12 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import (MLP, Params, _trunc_normal, dense_init,
-                                       dt, mlp, param)
+from repro_torch.distributed.sharding import fsdp_gather, tp_part
+from repro_torch.models.layers import (MLP, Params, _mlp_split,
+                                       _trunc_normal, dense_init, dt, mlp,
+                                       param, tp_region)
 
 INFERENCE_CAPACITY_FACTOR = 4.0   # relaxed at inference (drop ~never)
-MESH_TODO = ("expert-parallel MoE dispatch over a mesh is not ported yet: "
-             "ROADMAP §1 item 8 (distributed)")
 
 
 def expert_capacity(num_tokens: int, moe: MoEConfig,
@@ -100,17 +107,31 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, ctx=None,
     """MoE FFN. x (B,S,D) -> (out (B,S,D) in x's type, aux loss scalar).
 
     Training uses the configured capacity factor; inference relaxes it to
-    ``INFERENCE_CAPACITY_FACTOR``. A mesh context (``ctx``) asks for the
-    expert-parallel dispatch, which raises: it is not ported yet."""
+    ``INFERENCE_CAPACITY_FACTOR``. With a mesh context (``ctx``) x is the
+    residual's local block and the dispatch is expert-parallel
+    (:func:`_moe_ffn_sharded`); the experts must divide tp, as they must
+    for the reference's ``_moe_ffn_shardmap``."""
     if ctx is not None:
-        raise NotImplementedError(MESH_TODO)
+        return _moe_ffn_sharded(params, cfg, x, ctx, inference)
     moe = cfg.moe
-    B, S, D = x.shape
-    E = moe.num_experts
-    C = expert_capacity(S, moe,
+    C = expert_capacity(x.shape[1], moe,
                         INFERENCE_CAPACITY_FACTOR if inference else None)
     dense_w, _, aux = route(params["router"], x, moe)              # (B,S,E)
+    out = _experts(x, dense_w, params["w_gate"], params["w_up"],
+                   params["w_down"], C)
+    if moe.num_shared_experts:
+        out = out + mlp(params["shared"], x)
+    return out, aux
 
+
+def _experts(x: torch.Tensor, dense_w: torch.Tensor, w_gate: torch.Tensor,
+             w_up: torch.Tensor, w_down: torch.Tensor,
+             C: int) -> torch.Tensor:
+    """The routed experts' output (B,S,D) for the experts of the stacked
+    weights (all of them, or a tp rank's), ``dense_w`` (B,S,E) their
+    combine weights, C slots per expert and batch row."""
+    B, S, D = x.shape
+    E = dense_w.shape[-1]
     # expert-side selection of routed tokens (sequence priority). The slots
     # past an expert's routed tokens hold -inf scores in an unspecified
     # order; they are masked by ``valid`` and their inputs zeroed, so their
@@ -130,9 +151,9 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, ctx=None,
 
     # expert compute: one batched matmul over the experts per product
     xe = xin.transpose(0, 1).reshape(E, B * C, D)
-    gate = torch.bmm(xe, params["w_gate"])
-    up = torch.bmm(xe, params["w_up"])
-    y = torch.bmm(F.silu(gate) * up, params["w_down"])             # (E,BC,D)
+    gate = torch.bmm(xe, w_gate)
+    up = torch.bmm(xe, w_up)
+    y = torch.bmm(F.silu(gate) * up, w_down)                       # (E,BC,D)
     y = y.reshape(E, B, C, D).transpose(0, 1)                      # (B,E,C,D)
     y = y * torch.where(valid, w_in, 0.0).to(y.dtype)[..., None]
 
@@ -140,7 +161,41 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, ctx=None,
     rows = (b_idx * S + token_idx).reshape(-1)
     out = torch.zeros((B * S, D), dtype=y.dtype, device=x.device)
     out.index_add_(0, rows, y.reshape(-1, D))
-    out = out.reshape(B, S, D)
+    return out.reshape(B, S, D)
+
+
+def _moe_ffn_sharded(params, cfg: ModelConfig, x: torch.Tensor, ctx,
+                     inference: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_ffn_shardmap`` on this rank: its local experts
+    (the tp block, gathered over fsdp) over its local rows, the router over
+    all E, the experts' outputs (plus the shared experts' hidden block)
+    summed over tp, and the aux averaged over every mesh axis."""
+    moe = cfg.moe
+    E = moe.num_experts
+    if E % ctx.tp_size:
+        raise ValueError(f"{E} experts do not split over {ctx.tp_size} tp "
+                         f"ranks: the expert-parallel dispatch needs them to")
+    params = fsdp_gather(params, cfg, ctx)
+    wg, wu, wd = (tp_part(ctx, params[n], 0, E)
+                  for n in ("w_gate", "w_up", "w_down"))
+    El = E // ctx.tp_size
+    e0 = ctx.tp_rank * El
+    shared = None
     if moe.num_shared_experts:
-        out = out + mlp(params["shared"], x)
-    return out, aux
+        shared, partial = _mlp_split(params["shared"], ctx, moe.shared_d_ff)
+        if not partial and ctx.tp_size > 1:
+            whole = shared
+            # every tp rank holds the whole shared MLP: one rank adds it
+            shared = (lambda h: whole(h) if ctx.tp_rank == 0
+                      else torch.zeros_like(h))
+
+    def region(h):
+        C = expert_capacity(h.shape[1], moe, INFERENCE_CAPACITY_FACTOR
+                            if inference else None)
+        dense_w, _, aux = route(params["router"], h, moe)
+        out = _experts(h, dense_w[..., e0:e0 + El], wg, wu, wd, C)
+        if shared is not None:
+            out = out + shared(h)
+        return out, aux
+    out, aux = tp_region(ctx, (region, ctx.tp_size > 1), x)
+    return out.to(x.dtype), ctx.pmean(aux, ctx.axis_names)

@@ -21,6 +21,17 @@ with w_t = exp(-exp(w0 + lora_w(x))) in (0,1), data-dependent, float32.
     call with ``s0`` on CUDA lies on no path and no kernel takes a state,
     so it raises.
   * ``rwkv6_decode``: the single-token time-mix on the carried state.
+
+Over a mesh (``ctx``) the time-mix runs on this rank's batch rows and,
+where the heads divide tp, on its block of heads: the reference shards v,
+w and the state over tp on the value channels; here the split is by whole
+heads (each head's recurrence is independent, so the sums are the same),
+which keeps the recurrence, the bonus and the state of a head on one rank.
+r, k and the decay come from the column blocks of their whole weights, v
+and g from their tp blocks, the RMSNorm ``ln_x`` over all of D has its mean
+of squares summed over tp, and ``wo``'s row block gives a part summed over
+tp. The channel-mix runs its hidden block and sums it over tp. The
+prefill's state comes back whole (gathered over tp).
 """
 from __future__ import annotations
 
@@ -30,9 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Params, RMSNorm, const, dense_init, dt,
-                                       param, rmsnorm)
+                                       param, rmsnorm, tp_region)
 
 
 class RWKVState(NamedTuple):
@@ -165,15 +177,55 @@ def _time_mix_inputs(params, x: torch.Tensor, xs: torch.Tensor):
 
 def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
                    x_prev: torch.Tensor, s0: Optional[torch.Tensor] = None,
-                   use_chunked: bool = True, use_kernels: bool = True
+                   use_chunked: bool = True, use_kernels: bool = True,
+                   ctx=None, whole_state: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Time-mix. x (B,L,D); x_prev (B,D) the last token of the previous
     segment. Returns (out, s_final, x_last). ``use_chunked`` with no ``s0``
     is the kernel's call, unless ``use_kernels=False`` asks for
-    :func:`wkv_chunked`; ``use_chunked=False`` the step recurrence."""
+    :func:`wkv_chunked`; ``use_chunked=False`` the step recurrence. Over a
+    mesh (from a zero state), x is the residual's local block and so is the
+    output; s_final is gathered whole when ``whole_state``."""
+    if ctx is None:
+        return _time_mix(params, cfg, x, x_prev, s0, use_chunked,
+                         use_kernels, lambda p, y: rmsnorm(p, y,
+                                                           cfg.norm_eps))
+    N, D = cfg.rwkv.head_dim, cfg.d_model
+    H, tp = D // N, ctx.tp_size
+    params = fsdp_gather(params, cfg, ctx)
+    split = H % tp == 0 and tp > 1
+    fn = tp_part if split else tp_whole
+    p = {**params, **{n: fn(ctx, params[n], d, f) for n, (d, f) in {
+        "wr": (1, D), "wk": (1, D), "wv": (1, D), "wg": (1, D),
+        "wo": (0, D), "w0": (0, D), "decay_b": (1, D), "u": (0, H)}.items()}}
+    p["ln_x"] = {"scale": fn(ctx, params["ln_x"]["scale"], 0, D)}
+
+    def norm(pn, y):
+        # RMSNorm over all of D: the mean of squares summed over tp
+        ss = torch.sum(torch.square(y), dim=-1, keepdim=True,
+                       dtype=torch.float32)
+        inv = torch.rsqrt(ctx.psum(ss, ctx.tp_axis) / D
+                          + cfg.norm_eps).to(y.dtype)
+        return y * inv * pn["scale"].to(y.dtype)
+
+    def region(h):
+        return _time_mix(p, cfg, h, x_prev, s0, use_chunked, use_kernels,
+                         norm if split else
+                         (lambda pn, y: rmsnorm(pn, y, cfg.norm_eps)))
+    out, s_final, x_last = tp_region(ctx, (region, split), x)
+    if split and whole_state:
+        s_final = ctx.gather(s_final, None, ctx.tp_axis)
+    return out, s_final, x_last
+
+
+def _time_mix(params, cfg: ModelConfig, x: torch.Tensor,
+              x_prev: torch.Tensor, s0: Optional[torch.Tensor],
+              use_chunked: bool, use_kernels: bool, norm):
+    """The time-mix on the heads of the r, k, v, g, decay and ``wo`` blocks
+    it is given (a tp rank's, or all); ``norm(params, y)`` is ``ln_x``."""
     N = cfg.rwkv.head_dim
-    B, L, D = x.shape
-    H = D // N
+    B, L, _ = x.shape
+    H = params["wr"].shape[1] // N
     xs = _token_shift(x, x_prev)
     xr, xk, xv, xw, xg = _time_mix_inputs(params, x, xs)
     r = (xr @ params["wr"]).reshape(B, L, H, N)
@@ -183,27 +235,47 @@ def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     dlow = torch.tanh(xw @ params["decay_a"])
     dlog = params["w0"] + (dlow @ params["decay_b"]).float()
     w = torch.exp(-torch.exp(dlog)).reshape(B, L, H, N)  # (0,1) decay, f32
+    u = params["u"].contiguous()
     if not use_chunked:
-        out, s_final = wkv_naive(r, k, v, w, params["u"], s0)
+        out, s_final = wkv_naive(r, k, v, w, u, s0)
     elif s0 is None and use_kernels:
-        out, s_final = ops.rwkv6_wkv(r, k, v, w, params["u"])
+        out, s_final = ops.rwkv6_wkv(r, k, v, w, u)
     elif x.device.type == "cuda" and use_kernels:
         raise NotImplementedError(
             "a chunked WKV from a carried state has no kernel: the CUDA "
             "kernel, like the TPU one, starts from a zero state")
     else:
-        out, s_final = wkv_chunked(r, k, v, w, params["u"], s0)
-    out = rmsnorm(params["ln_x"], out.reshape(B, L, D), cfg.norm_eps) * g
+        out, s_final = wkv_chunked(r, k, v, w, u, s0)
+    out = norm(params["ln_x"], out.reshape(B, L, H * N)) * g
     return out @ params["wo"], s_final, x[:, -1, :]
 
 
-def rwkv6_channel_mix(params, x: torch.Tensor, x_prev: torch.Tensor
+def rwkv6_channel_mix(params, x: torch.Tensor, x_prev: torch.Tensor,
+                      ctx=None, cfg: Optional[ModelConfig] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Channel-mix FFN with token shift. Returns (out, x_last)."""
+    """Channel-mix FFN with token shift. Returns (out, x_last). Over a mesh
+    (``ctx``, with ``cfg``), x is the residual's local block and so is the
+    output: the hidden dim splits over tp where it divides, its product
+    summed over tp before the receptance gate."""
+    if ctx is None:
+        return _channel_mix(params, x, x_prev, None)
+    params = fsdp_gather(params, cfg, ctx)
+    F_ = cfg.d_ff
+    split = F_ % ctx.tp_size == 0 and ctx.tp_size > 1
+    fn = tp_part if split else tp_whole
+    p = {**params, "cm_k": fn(ctx, params["cm_k"], 1, F_),
+         "cm_v": fn(ctx, params["cm_v"], 0, F_)}
+    return tp_region(ctx, (lambda h: _channel_mix(
+        p, h, x_prev, ctx if split else None), False), x)
+
+
+def _channel_mix(params, x: torch.Tensor, x_prev: torch.Tensor, ctx):
     xs = _token_shift(x, x_prev)
     xk = x + (xs - x) * params["cm_mu"][0]
     xr = x + (xs - x) * params["cm_mu"][1]
     kv = torch.square(F.relu(xk @ params["cm_k"])) @ params["cm_v"]
+    if ctx is not None:
+        kv = ctx.psum(kv, ctx.tp_axis)
     return torch.sigmoid(xr @ params["cm_r"]) * kv, x[:, -1, :]
 
 

@@ -21,6 +21,14 @@ kernels (prefill and serving) or the plain counterparts of the reference's
 XLA paths (training, ``use_kernels=False``: the kernels have no backward).
 With ``remat`` every block runs under ``torch.utils.checkpoint``, the
 counterpart of the reference's ``jax.checkpoint`` over its layer scan.
+
+Over a mesh (``ctx``) every block first gathers its weights over the fsdp
+axis (``fsdp_gather``, the reference's explicit ZeRO-3 prefetch; under
+remat the gather runs again in backward), and the residual between blocks
+is this rank's batch rows, replicated over tp, or with
+``sequence_parallel`` also cut to its block of positions: the reference
+pins it ``(dp, None, None)`` or ``(dp, tp, None)``. The mixers and FFNs
+take and give that layout (`repro_torch.models.layers.tp_region`).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
@@ -79,17 +88,25 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
     return Block(cfg, gen, gen.device, use_moe=use_moe)
 
 
-def _ffn(params, cfg: ModelConfig, h: torch.Tensor, inference: bool
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _dense_d_ff(cfg: ModelConfig) -> int:
+    """The hidden width of a block's dense FFN."""
+    return (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.first_k_dense
+            else cfg.d_ff)
+
+
+def _ffn(params, cfg: ModelConfig, h: torch.Tensor, inference: bool,
+         ctx=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on its normed input and its aux loss: MoE (a float32
     scalar), or the dense MLP (None)."""
     if "moe" in params:
-        return moe_mod.moe_ffn(params["moe"], cfg, h, inference=inference)
-    return mlp(params["mlp"], h), None
+        return moe_mod.moe_ffn(params["moe"], cfg, h, ctx=ctx,
+                               inference=inference)
+    return mlp(params["mlp"], h, ctx, _dense_d_ff(cfg)), None
 
 
 def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor,
-                  use_kernels: bool = True
+                  use_kernels: bool = True, ctx=None,
+                  whole_state: bool = True
                   ) -> Tuple[torch.Tensor, rw.RWKVState]:
     """An RWKV6 block over a whole sequence from a zero state, and its decode
     state (the WKV state and the last normed input of each sublayer)."""
@@ -97,33 +114,36 @@ def _rwkv_prefill(params, cfg: ModelConfig, x: torch.Tensor,
     zeros = torch.zeros((B, D), dtype=x.dtype, device=x.device)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     tm, s_final, x_tm = rw.rwkv6_time_mix(params["mixer"], cfg, h, zeros,
-                                          use_kernels=use_kernels)
+                                          use_kernels=use_kernels, ctx=ctx,
+                                          whole_state=whole_state)
     x = x + tm
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, zeros)
+    cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, zeros, ctx, cfg)
     length = torch.full((B,), L, dtype=torch.int32, device=x.device)
     return x + cm, rw.RWKVState(s_final, x_tm, x_cm, length)
 
 
 def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, inference: bool = False,
-                  use_kernels: bool = True
+                  use_kernels: bool = True, ctx=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward for one block: (x, aux loss). ``inference``
     relaxes a MoE FFN's capacity; ``use_kernels=False`` takes the plain
-    mixers (training)."""
+    mixers (training); ``ctx`` runs it over the mesh."""
     zero = torch.zeros((), device=x.device)      # no aux loss
+    params = fsdp_gather(params, cfg, ctx)       # explicit ZeRO-3 prefetch
     if cfg.block_kind == "mamba2":
         return x + m2.mamba2_block(params["mixer"], cfg,
                                    rmsnorm(params["norm"], x, cfg.norm_eps),
-                                   use_kernels), zero
+                                   use_kernels, ctx), zero
     if cfg.block_kind == "rwkv6":
-        return _rwkv_prefill(params, cfg, x, use_kernels)[0], zero
+        return _rwkv_prefill(params, cfg, x, use_kernels, ctx,
+                             whole_state=False)[0], zero
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(params["attn"], cfg, h, positions,
-                               use_kernels)
+                               use_kernels, ctx)
     out, aux = _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
-                    inference)
+                    inference, ctx)
     return x + out, zero if aux is None else aux
 
 
@@ -150,21 +170,23 @@ def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, capacity: int
+                  positions: torch.Tensor, capacity: int, ctx=None
                   ) -> Tuple[torch.Tensor, Any]:
-    """Forward one block and return its decode cache."""
+    """Forward one block and return its decode cache (over a mesh, the
+    cache of this rank's rows, whole over tp)."""
+    params = fsdp_gather(params, cfg, ctx)       # explicit ZeRO-3 prefetch
     if cfg.block_kind == "mamba2":
         h = rmsnorm(params["norm"], x, cfg.norm_eps)
-        out, state = m2.mamba2_prefill(params["mixer"], cfg, h)
+        out, state = m2.mamba2_prefill(params["mixer"], cfg, h, ctx=ctx)
         return x + out, state
     if cfg.block_kind == "rwkv6":
-        return _rwkv_prefill(params, cfg, x)
+        return _rwkv_prefill(params, cfg, x, ctx=ctx)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     out, kv = attn_mod.attention_prefill(params["attn"], cfg, h, positions,
-                                         capacity)
+                                         capacity, ctx)
     x = x + out
     return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
-                    True)[0], kv
+                    True, ctx)[0], kv
 
 
 # ---------------------------------------------------------------------------
@@ -202,25 +224,47 @@ def init_site_lora(gen: torch.Generator, cfg: ModelConfig) -> SiteLoRA:
     return SiteLoRA(cfg, gen, gen.device)
 
 
-def _lora_adjusted_attn_params(shared, lora) -> Dict[str, torch.Tensor]:
-    """Per-site attention weights: wq + a_q@b_q and wk + a_k@b_k."""
-    p = dict(shared.named_parameters(recurse=False))
-    p["wq"] = shared["wq"] + lora["a_q"] @ lora["b_q"]
-    p["wk"] = shared["wk"] + lora["a_k"] @ lora["b_k"]
+def _lora_adjusted_attn_params(shared, lora, cfg: Optional[ModelConfig] = None,
+                               ctx=None) -> Dict[str, torch.Tensor]:
+    """Per-site attention weights: wq + a_q@b_q and wk + a_k@b_k. Over a
+    mesh each b takes the tp layout of the weight it adjusts (wk is whole
+    where the kv heads do not divide tp, b_k is cut on its columns)."""
+    p = (dict(shared.named_parameters(recurse=False))
+         if isinstance(shared, nn.Module) else
+         {k: v for k, v in shared.items() if isinstance(v, torch.Tensor)})
+    b_q, b_k = lora["b_q"], lora["b_k"]
+    if ctx is not None:
+        hd = cfg.resolved_head_dim
+        b_q, b_k = (_like(ctx, b, p[w], n * hd) for b, w, n in (
+            (b_q, "wq", cfg.n_heads), (b_k, "wk", cfg.n_kv_heads)))
+    p["wq"] = shared["wq"] + lora["a_q"] @ b_q
+    p["wk"] = shared["wk"] + lora["a_k"] @ b_k
     return p
 
 
-def _shared_mlp(shared, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp(shared["mlp"], rmsnorm(shared["norm2"], x, cfg.norm_eps))
+def _like(ctx, b: torch.Tensor, w: torch.Tensor, full: int) -> torch.Tensor:
+    """``b`` (r, full) on the tp layout of ``w``'s columns."""
+    if b.shape[1] == w.shape[1]:
+        return b
+    if w.shape[1] == full:
+        return tp_whole(ctx, b, 1, full)
+    return tp_part(ctx, b, 1, full)
+
+
+def _shared_mlp(shared, cfg: ModelConfig, x: torch.Tensor,
+                ctx=None) -> torch.Tensor:
+    return x + mlp(shared["mlp"], rmsnorm(shared["norm2"], x, cfg.norm_eps),
+                   ctx, cfg.d_ff)
 
 
 def shared_attn_forward(shared, lora, cfg: ModelConfig, x: torch.Tensor,
                         positions: torch.Tensor,
-                        use_kernels: bool = True) -> torch.Tensor:
-    ap = _lora_adjusted_attn_params(shared["attn"], lora)
+                        use_kernels: bool = True, ctx=None) -> torch.Tensor:
+    shared, lora = fsdp_gather((shared, lora), cfg, ctx)
+    ap = _lora_adjusted_attn_params(shared["attn"], lora, cfg, ctx)
     h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
     return _shared_mlp(shared, cfg, x + attn_mod.attention(
-        ap, cfg, h, positions, use_kernels))
+        ap, cfg, h, positions, use_kernels, ctx), ctx)
 
 
 def shared_attn_decode(shared, lora, cfg: ModelConfig, x: torch.Tensor,
@@ -232,12 +276,14 @@ def shared_attn_decode(shared, lora, cfg: ModelConfig, x: torch.Tensor,
 
 
 def shared_attn_prefill(shared, lora, cfg: ModelConfig, x: torch.Tensor,
-                        positions: torch.Tensor, capacity: int
+                        positions: torch.Tensor, capacity: int, ctx=None
                         ) -> Tuple[torch.Tensor, KVCache]:
-    ap = _lora_adjusted_attn_params(shared["attn"], lora)
+    shared, lora = fsdp_gather((shared, lora), cfg, ctx)
+    ap = _lora_adjusted_attn_params(shared["attn"], lora, cfg, ctx)
     h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
-    out, kv = attn_mod.attention_prefill(ap, cfg, h, positions, capacity)
-    return _shared_mlp(shared, cfg, x + out), kv
+    out, kv = attn_mod.attention_prefill(ap, cfg, h, positions, capacity,
+                                         ctx)
+    return _shared_mlp(shared, cfg, x + out, ctx), kv
 
 
 # ---------------------------------------------------------------------------
@@ -316,18 +362,18 @@ def _maybe_remat(remat: bool, fn, *args):
 
 def stack_forward(params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, inference: bool = False,
-                  remat: bool = False, use_kernels: bool = True
+                  remat: bool = False, use_kernels: bool = True, ctx=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward through all layers: (x, summed aux loss).
     ``inference`` relaxes the MoE capacity; ``remat`` checkpoints each block
     (and each shared-attention site); ``use_kernels=False`` takes the plain
-    mixers (training)."""
+    mixers (training); ``ctx`` runs every block over the mesh."""
     aux = torch.zeros((), device=x.device)
 
     def block(b, x):
         nonlocal aux
         x, a = _maybe_remat(remat, block_forward, b, cfg, x, positions,
-                            inference, use_kernels)
+                            inference, use_kernels, ctx)
         aux = aux + a
         return x
     if cfg.block_pattern == "zamba_hybrid":
@@ -335,7 +381,7 @@ def stack_forward(params, cfg: ModelConfig, x: torch.Tensor,
             for b in group:
                 x = block(b, x)
             x = _maybe_remat(remat, shared_attn_forward, params["shared_attn"],
-                             lora, cfg, x, positions, use_kernels)
+                             lora, cfg, x, positions, use_kernels, ctx)
         for b in _tail(params):
             x = block(b, x)
         return x, aux
@@ -413,29 +459,29 @@ def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor
 
 
 def stack_prefill(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, capacity: int
+                  positions: torch.Tensor, capacity: int, ctx=None
                   ) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
     """Forward all layers, returning per-layer decode caches (the structure
-    of :func:`init_caches`)."""
+    of :func:`init_caches`); ``ctx`` runs every block over the mesh."""
     if cfg.block_pattern == "zamba_hybrid":
         caches = {"groups": [], "shared_kv": []}
         for group, lora in zip(_site_groups(params, cfg), params["loras"]):
             for block in group:
-                x, c = block_prefill(block, cfg, x, positions, capacity)
+                x, c = block_prefill(block, cfg, x, positions, capacity, ctx)
                 caches["groups"].append(c)
             x, kv = shared_attn_prefill(params["shared_attn"], lora, cfg, x,
-                                        positions, capacity)
+                                        positions, capacity, ctx)
             caches["shared_kv"].append(kv)
         if "tail" in params:
             caches["tail"] = []
             for block in params["tail"]:
-                x, c = block_prefill(block, cfg, x, positions, capacity)
+                x, c = block_prefill(block, cfg, x, positions, capacity, ctx)
                 caches["tail"].append(c)
         return x, caches
     caches = {}
     for kind, blocks in _uniform(params):
         caches[kind] = []
         for block in blocks:
-            x, c = block_prefill(block, cfg, x, positions, capacity)
+            x, c = block_prefill(block, cfg, x, positions, capacity, ctx)
             caches[kind].append(c)
     return x, caches

@@ -11,7 +11,10 @@ Counterpart of ``repro.runtime.driver``; the elastic path counts the CUDA
 devices (1 on a machine without one) where the reference counts JAX's, and
 a restart waits for the last checkpoint's writer before it reads which
 step is the latest, as the reference's rescale does and its restart does
-not.
+not. Over a mesh of ranks the launcher passes how a state is snapshot and
+restored (gathered to the writing rank, laid back onto the mesh), which
+rank writes, and a barrier that holds the others until the checkpoint is
+written.
 """
 from __future__ import annotations
 
@@ -62,12 +65,22 @@ class TrainDriver:
     def __init__(self, store: CheckpointStore,
                  build_step: Callable[[Dict], Any],
                  checkpoint_every: int = 10,
-                 failure_schedule: Optional[Dict[int, str]] = None):
+                 failure_schedule: Optional[Dict[int, str]] = None,
+                 snapshot: Optional[Callable[[Any], Any]] = None,
+                 restore: Optional[Callable[[Any, int], Any]] = None,
+                 writer: bool = True,
+                 sync: Optional[Callable[[], None]] = None):
         self.store = store
         self.build_step = build_step
         self.checkpoint_every = checkpoint_every
         self.failure_schedule = failure_schedule or {}
         self.report = DriverReport()
+        if snapshot is not None:
+            self._snapshot = snapshot
+        if restore is not None:
+            self._restore = restore
+        self.writer = writer
+        self.sync = sync or (lambda: None)
 
     def run(self, total_steps: int, mesh_spec: Dict) -> DriverReport:
         step_fn, state = self.build_step(mesh_spec)
@@ -88,6 +101,7 @@ class TrainDriver:
                 # LATEST without waiting, so it can restart from step 0 and
                 # then restore a checkpoint that the writer finished since
                 self.store.wait()
+                self.sync()
                 latest = self.store.latest_step() or 0
                 step_fn, state = self.build_step(mesh_spec)
                 if self.store.latest_step() is not None:
@@ -102,6 +116,7 @@ class TrainDriver:
                 mesh_spec["n_devices"] = max(1, mesh_spec.get(
                     "n_devices", _device_count()) // 2)
                 self.store.wait()
+                self.sync()
                 latest = self.store.latest_step() or 0
                 step_fn, state = self.build_step(mesh_spec)
                 if self.store.latest_step() is not None:
@@ -114,9 +129,12 @@ class TrainDriver:
             self.report.steps_completed += 1
             if step % self.checkpoint_every == 0:
                 self.store.wait()
-                self.store.save_async(step, self._snapshot(state))
+                snap = self._snapshot(state)
+                if self.writer:
+                    self.store.save_async(step, snap)
                 self.report.checkpoints.append(step)
         self.store.wait()
+        self.sync()
         return self.report
 
     @staticmethod

@@ -6,6 +6,12 @@ so requests at different depths decode together. A new request is prefilled
 on its own (batch 1) and spliced into a free slot; a finished request frees
 its slot. PyTorch runs eagerly, so the steps are called as they are, with
 no compiled counterpart of the reference's ``jax.jit``.
+
+``prefill_step`` and the session take a mesh context (``ctx``), as the
+reference's do: the prefill then runs over the mesh (each rank its block
+of the prompt rows where they split over the data-parallel axes, its block
+of heads, the kernels on plain local tensors) and gives back the logits and
+caches whole on every rank. Decode stays unsharded, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,11 +19,14 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import fsdp_gather
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import dt, rmsnorm
@@ -29,18 +38,36 @@ from repro_torch.models.layers import dt, rmsnorm
 
 @torch.no_grad()
 def prefill_step(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
-                 capacity: int) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
+                 capacity: int, ctx=None
+                 ) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
     """Prefill: inputs -> (last-token logits (B,V) fp32, populated caches).
     Runs under ``torch.no_grad()``, as :func:`decode_step` does (through
-    ``model.decode_step``): a trainable model served builds no graph."""
-    x = M.apply_frontend(params, cfg, inputs).to(dt(cfg.compute_dtype))
+    ``model.decode_step``): a trainable model served builds no graph. Over
+    a mesh (``ctx``) every rank passes the whole inputs and gets the whole
+    logits and caches back; rows that do not split over the data-parallel
+    axes (a batch of one) run on every rank."""
+    rows = None
+    if ctx is not None:
+        ctx = dataclasses.replace(ctx, sequence_parallel=False)
+        B = next(iter(inputs.values())).shape[0]
+        rows = ctx.dp_axes if B % ctx.dp_size == 0 else None
+        inputs = {k: ctx.constrain(v, rows) for k, v in inputs.items()}
+    x = M.apply_frontend(params, cfg, inputs, ctx).to(dt(cfg.compute_dtype))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     x, caches = tf.stack_prefill(params["stack"], cfg, x, positions,
-                                 capacity)
-    x = rmsnorm(params["final_norm"], x[:, -1], cfg.norm_eps)
-    return M.logits(params, cfg, x), caches
+                                 capacity, ctx)
+    final_norm = params["final_norm"]
+    if ctx is not None:
+        final_norm = fsdp_gather(final_norm, cfg, ctx)
+    x = rmsnorm(final_norm, x[:, -1], cfg.norm_eps)
+    logits = M.logits(params, cfg, x, ctx)
+    if rows is not None:
+        logits = ctx.gather(logits, rows)
+        caches = {kind: [type(c)(*(ctx.gather(t, rows) for t in c))
+                         for c in layers] for kind, layers in caches.items()}
+    return logits, caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches):
@@ -75,10 +102,12 @@ class ServeSession:
     list of ``(request_id, prompt tokens, seconds)``, the time to the first
     token; ``"decode"`` a list of ``(active slots, seconds)`` per step.
     ``nonfinite_logits`` counts the logits, over every prefill and decode
-    step, that were not finite."""
+    step, that were not finite. With ``ctx`` every prefill runs over its
+    mesh (:func:`prefill_step`) and decode stays unsharded, so ``params``
+    are plain tensors, whole on every rank."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
-                 capacity: int, device: DeviceLike = "cuda"):
+                 capacity: int, device: DeviceLike = "cuda", ctx=None):
         self.device = resolve_device(device)
         on = {p.device.type for p in params.parameters()}
         if on != {self.device.type}:
@@ -86,6 +115,7 @@ class ServeSession:
                              f"{self.device}")
         self.params = params
         self.cfg = cfg
+        self.ctx = ctx
         self.B = batch_slots
         self.capacity = capacity
         self.caches = M.init_decode_state(cfg, batch_slots, capacity,
@@ -127,7 +157,8 @@ class ServeSession:
             tokens = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
                                      device=self.device)
             logits, caches_new = prefill_step(
-                self.params, self.cfg, {"tokens": tokens}, self.capacity)
+                self.params, self.cfg, {"tokens": tokens}, self.capacity,
+                self.ctx)
             first = int(greedy_sample(logits)[0])
             self.nonfinite_logits += int((~torch.isfinite(logits)).sum())
             self.timings["prefill"].append(

@@ -12,6 +12,12 @@ A parameter that the loss does not reach has a grad of ``None`` in PyTorch
 where JAX has zeros (hubert's token ``embed`` table, an expert no token
 reaches): every function here takes ``None`` as zeros, so its moments still
 decay and weight decay still applies to its master weights.
+
+Over a mesh the parameters, the grads and the state are ``DTensor``s with
+the parameters' placements: the update runs on each one's local block (the
+same arithmetic, block by block), and the global norm sums each block's
+squares once: a block replicated over an axis counts on the rank at
+coordinate 0 of that axis only, and the sum runs over every mesh axis.
 """
 from __future__ import annotations
 
@@ -20,9 +26,37 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 Grads = Mapping[str, Optional[torch.Tensor]]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local block (its storage), or the tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(t: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as a block of ``t``'s placements when ``t`` is a
+    ``DTensor``."""
+    if not isinstance(t, DTensor):
+        return local
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _counts_here(t: torch.Tensor) -> bool:
+    """Whether this rank's block of ``t`` enters a global sum: on every mesh
+    axis where ``t`` is replicated, only coordinate 0 adds its copy."""
+    if not isinstance(t, DTensor):
+        return True
+    mesh = t.device_mesh
+    return all(mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(t.placements)
+               if isinstance(pl, Replicate))
 
 
 @dataclass(frozen=True)
@@ -68,10 +102,24 @@ def init_opt_state(params: nn.Module) -> Dict[str, object]:
 
 def global_norm(grads: Grads) -> torch.Tensor:
     """sqrt of the sum of squares of every grad, in float32 (``None`` is
-    zeros)."""
-    sums = [torch.sum(torch.square(g.float())) for g in grads.values()
-            if g is not None]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    zeros). Over a mesh (``DTensor`` grads) every block counts once and the
+    sum runs over the whole mesh, so the norm is that of the whole grads."""
+    sums, mesh = [], None
+    for g in grads.values():
+        if g is None:
+            continue
+        sq = torch.sum(torch.square(_local(g).float()))
+        if isinstance(g, DTensor):
+            mesh = g.device_mesh
+            if not _counts_here(g):
+                sq = torch.zeros_like(sq)
+        sums.append(sq)
+    total = torch.sum(torch.stack(sums))
+    if mesh is not None:
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: Grads, max_norm: float
@@ -81,7 +129,7 @@ def clip_by_global_norm(grads: Grads, max_norm: float
     norm). Float32 grads are scaled in place; ``None`` stays ``None``."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {n: None if g is None else g.float().mul_(scale)
+    return {n: None if g is None else _like(g, _local(g).float().mul_(scale))
             for n, g in grads.items()}, norm
 
 
@@ -100,8 +148,11 @@ def adamw_update(params: nn.Module, grads: Grads, state: Dict[str, object],
     b1t = 1 - torch.pow(opt.b1, step.float())
     b2t = 1 - torch.pow(opt.b2, step.float())
     for name, p in params.named_parameters():
-        m, v, master = (state[k][name] for k in ("m", "v", "master"))
+        p = _local(p)
+        m, v, master = (_local(state[k][name]) for k in ("m", "v", "master"))
         g = grads.get(name)
+        if g is not None:
+            g = _local(g)
         m.mul_(opt.b1)
         v.mul_(opt.b2)
         if g is not None:

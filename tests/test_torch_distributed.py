@@ -146,15 +146,42 @@ def test_placements_follow_the_spec():
         TS.placements(TS.P("data", "data"), mesh)
 
 
-def test_mesh_context_inside_the_model_raises():
+def test_mesh_context_inside_the_model_raises(tmp_path):
+    """A context that only names axes (the spec functions' namespace) has
+    no mesh: every collective inside the model raises, none falls back to
+    one rank. A context of a ``DeviceMesh`` carries it: on a (1, 1) gloo
+    mesh ``constrain`` and ``gather`` keep a tensor whole and
+    ``fsdp_gather`` gives every weight of a block laid onto the mesh back
+    as the plain tensor it was."""
+    from torch.distributed.tensor import DTensor
+    from torch_parity import one_rank_mesh
     ctx = _ctx(TS, "16x16")
-    assert (ctx.tp_size, ctx.dp_size) == (16, 16)
+    assert (ctx.tp_size, ctx.dp_size) == (16, 16) and ctx.mesh is None
     assert _ctx(TS, "2x16x16").dp_size == 32
-    with pytest.raises(NotImplementedError, match="item 8"):
+    cfg = registry.get_smoke_config("qwen3_32b")
+    with pytest.raises(RuntimeError, match="no DeviceMesh"):
         ctx.constrain(torch.zeros(2), "data")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TS.fsdp_gather({"w": torch.zeros(2, 2)}, registry.get_config(
-            "qwen3_32b"), ctx)
+    with pytest.raises(RuntimeError, match="no DeviceMesh"):
+        TS.fsdp_gather({"w": torch.zeros(2, 2)}, cfg, ctx)
+    with one_rank_mesh(tmp_path) as mesh:
+        ctx = TS.make_ctx(mesh)
+        assert ctx.mesh is mesh and ctx.shape == {"data": 1, "model": 1}
+        x = torch.arange(12.0).reshape(3, 4)
+        assert torch.equal(ctx.constrain(x, "data", "model"), x)
+        assert torch.equal(ctx.gather(x, "data", "model"), x)
+        assert torch.equal(ctx.psum(x, ("data", "model")), x)
+        model = Model(cfg, torch.Generator().manual_seed(0), "cpu")
+        block = model.stack.layers[0]
+        want = {n: p.detach().clone() for n, p in block.named_parameters()}
+        TS.shard_model(model, cfg, ctx)
+        assert all(isinstance(p, DTensor) for p in model.parameters())
+        got = TS.fsdp_gather(block, cfg, ctx)
+        assert got["attn"]["wq"].shape == want["attn.wq"].shape
+        for n, w in want.items():
+            node = got
+            for part in n.split("."):
+                node = node[part]
+            assert not isinstance(node, DTensor) and torch.equal(node, w), n
 
 
 def test_production_mesh_needs_its_ranks():

@@ -208,17 +208,45 @@ def test_full_size_model_on_meta_device(arch):
 
 @pytest.mark.parametrize("arch,needle", [
     ("internvl2_2b", "frontend"), ("hubert_xlarge", "frontend")])
-def test_unported_parts_raise(arch, needle):
+def test_unported_parts_raise(arch, needle, tmp_path):
     """The frontends are ported: the model builds with its ``frontend``.
-    What is still unported for these archs, training over a mesh, raises
-    naming its ROADMAP item."""
+    Training over a mesh is ported too, so nothing of these archs raises
+    any more: on a (1, 1, 1) ("pod", "data", "model") gloo mesh the pod
+    branch (``compress_dcn``) takes a step whose loss and grad norm equal
+    the one-process step's from the same weights and batch, and its
+    ``dcn_error`` is float32, one per parameter (tests/test_torch_sharded.py
+    holds the branch on 4 ranks)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_ctx
     from repro_torch.train import optimizer, train_step
+    from torch_parity import one_rank_mesh, train_batch
     cfg = registry.get_smoke_config(arch)
     model = TM.init_model(torch.Generator().manual_seed(0), cfg)
     assert needle in dict(model.named_children())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        train_step.make_train_step(cfg, SHAPES["train_4k"],
-                                   optimizer.OptConfig(), compress_dcn=True)
+    opt = optimizer.OptConfig(total_steps=10, warmup_steps=2)
+    shape = ShapeConfig("s", "train", 8, 2, 1, True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in train_batch(cfg, 2, 8, seed=1).items()}
+    params, state = train_step.init_train_state(
+        torch.Generator().manual_seed(0), cfg, opt)
+    _, _, want = train_step.make_train_step(cfg, shape, opt)(params, state,
+                                                             batch)
+    with one_rank_mesh(tmp_path, (1, 1, 1), ("pod", "data", "model")) as mesh:
+        ctx = make_ctx(mesh)
+        params, state = train_step.init_train_state(
+            torch.Generator().manual_seed(0), cfg, opt, compress_dcn=True,
+            ctx=ctx)
+        assert set(state["dcn_error"]) == {n for n, _ in
+                                          params.named_parameters()}
+        assert all(e.dtype == torch.float32
+                   for e in state["dcn_error"].values())
+        _, state, got = train_step.make_train_step(
+            cfg, shape, opt, ctx=ctx, compress_dcn=True)(params, state, batch)
+        errs = [e.to_local() for e in state["dcn_error"].values()]
+    assert float(got["loss"]) == float(want["loss"])
+    assert float(got["grad_norm"]) == pytest.approx(float(want["grad_norm"]),
+                                                    rel=1e-3)
+    assert any(e.any() for e in errs)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -137,12 +137,29 @@ def test_moe_ffn_matches_reference(case, inference):
     assert abs(float(aux) - float(jaux)) <= 1e-6
 
 
-def test_moe_ffn_on_a_mesh_raises():
+def test_moe_ffn_on_a_mesh_raises(tmp_path):
+    """Over a mesh the FFN is the expert-parallel dispatch: a context
+    without a mesh raises (no fallback to one rank); on a (1, 1) gloo mesh
+    it gives the one-process FFN's output and aux exactly, from the experts
+    laid onto the mesh (tests/test_torch_sharded.py holds it on 4 ranks
+    against the reference's ``_moe_ffn_shardmap``)."""
+    import types
+    from repro_torch.distributed import sharding as TS
+    from torch_parity import one_rank_mesh
     _, cfg = configs()
     model = TM.Model(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        TMoE.moe_ffn(model.stack.layers[0].moe, cfg,
-                     torch.zeros(1, 4, cfg.d_model), ctx=object())
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    no_mesh = TS.make_ctx(types.SimpleNamespace(
+        mesh_dim_names=("data", "model"), shape=(1, 1)))
+    with pytest.raises(RuntimeError, match="no DeviceMesh"):
+        TMoE.moe_ffn(model.stack.layers[0].moe, cfg, x, ctx=no_mesh)
+    want, want_aux = TMoE.moe_ffn(model.stack.layers[0].moe, cfg, x)
+    with one_rank_mesh(tmp_path) as mesh:
+        ctx = TS.make_ctx(mesh)
+        TS.shard_model(model, cfg, ctx)
+        out, aux = TMoE.moe_ffn(model.stack.layers[0].moe, cfg, x, ctx=ctx)
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
 
 
 def test_router_stays_float32():

@@ -452,16 +452,48 @@ def test_loss_decreases_on_repeated_batch():
     assert losses[-1] < losses[0] * 0.8
 
 
-def test_pod_branch_and_mesh_raise():
+def test_pod_branch_and_mesh_raise(tmp_path):
+    """The pod branch and the mesh are ported (tests/test_torch_sharded.py
+    holds them on 4 ranks). Without a pod axis ``compress_dcn`` is the
+    plain step, as in the reference, and its state carries float32 zeros
+    ``dcn_error``; a context without a mesh raises when the step runs (no
+    fallback to one rank); on a (1, 1) gloo mesh the step equals the
+    one-process step."""
+    import types
+    from repro_torch.distributed.sharding import make_ctx
+    from torch_parity import one_rank_mesh
     cfg = registry.get_smoke_config("qwen3_32b")
     shape = ShapeConfig("s", "train", 16, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.make_train_step(cfg, shape, TO.OptConfig(), compress_dcn=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.make_train_step(cfg, shape, TO.OptConfig(), ctx=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.init_train_state(torch.Generator(), cfg, TO.OptConfig(),
-                            compress_dcn=True)
+    opt = TO.OptConfig(total_steps=10, warmup_steps=2)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32))
+    batch = {"tokens": toks, "labels": toks}
+
+    def run(ctx=None, compress_dcn=False):
+        params, state = TT.init_train_state(
+            torch.Generator().manual_seed(0), cfg, opt,
+            compress_dcn=compress_dcn, ctx=ctx)
+        step = TT.make_train_step(cfg, shape, opt, ctx=ctx,
+                                  compress_dcn=compress_dcn)
+        params, state, m = step(params, state, batch)
+        return params, state, m
+    p0, s0, m0 = run()
+    p1, s1, m1 = run(compress_dcn=True)
+    assert float(m1["loss"]) == float(m0["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(p0.parameters(),
+                                                  p1.parameters()))
+    assert all(e.dtype == torch.float32 and not e.any()
+               for e in s1["dcn_error"].values())
+    no_mesh = make_ctx(types.SimpleNamespace(
+        mesh_dim_names=("data", "model"), shape=(1, 1)))
+    with pytest.raises(RuntimeError, match="no DeviceMesh"):
+        run(ctx=no_mesh)
+    with one_rank_mesh(tmp_path) as mesh:
+        p2, _, m2 = run(ctx=make_ctx(mesh))
+        p2 = [p.to_local() for p in p2.parameters()]
+    assert float(m2["loss"]) == float(m0["loss"])
+    assert float(m2["grad_norm"]) == float(m0["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in zip(p0.parameters(), p2))
 
 
 def test_trainer_raises_for_frontend_archs_as_the_reference_does():

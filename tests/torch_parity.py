@@ -9,6 +9,7 @@ become ``(class name, {field: value})``, enums their value, numpy arrays
 ``(dtype, shape, bytes)``. Other objects (a service, a fabric) reduce to
 their class name, because they are compared through what they report.
 """
+import contextlib
 import dataclasses
 import enum
 import hashlib
@@ -392,3 +393,58 @@ def assert_trees_close(port, ref, rtol, normwise=False):
         r = r.astype(np.float64)
         err = float(size(a.astype(np.float64) - r) / size(r))
         assert err < rtol, f"{'/'.join(path)}: rel {err:.3g}"
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path, shape=(1, 1), axes=("data", "model")):
+    """A CPU ``DeviceMesh`` of ``shape`` (every size 1) over a gloo group of
+    one rank, its rendezvous under ``tmp_path``; the group is destroyed on
+    exit."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv1",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        yield make_mesh(shape, axes, "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def int8_pod_hop(per_pod, errs, leaf_of=lambda k: k):
+    """The pod branch's int8 hop in one process, as the reference's
+    ``pod_body`` computes it: each pod's ``g + e`` quantized once
+    (``train.compression``'s arithmetic) with the scale of its whole leaf,
+    its new error ``g + e - q * scale``, and the mean over the pods of
+    scale times payload, summed in pod order.
+    ``per_pod`` and ``errs``: a dict of float32 tensors for each pod, keyed
+    alike; ``leaf_of(key)`` names the leaf a key is part of (the port's
+    per-layer parameters of one of the reference's stacked leaves).
+    Returns (the reduced dict, the new errors of each pod)."""
+    import torch
+    from repro_torch.train import compression as C
+    n = len(per_pod)
+    tgts = [{k: g[k].to(torch.float32) + e[k] for k in g}
+            for g, e in zip(per_pod, errs)]
+    amax = [{} for _ in range(n)]
+    for i in range(n):
+        for k, t in tgts[i].items():
+            m = t.abs().amax()
+            old = amax[i].get(leaf_of(k))
+            amax[i][leaf_of(k)] = m if old is None else torch.maximum(old, m)
+    red, new_errs = {}, [{} for _ in per_pod]
+    for k in per_pod[0]:
+        qs = []
+        for i in range(n):
+            scale = amax[i][leaf_of(k)] / 127.0 + 1e-12
+            q = torch.clamp(torch.round(tgts[i][k] / scale), -127,
+                            127).to(torch.int8)
+            new_errs[i][k] = tgts[i][k] - C.dequantize_int8(q, scale)
+            qs.append((q, scale))
+        acc = qs[0][1] * qs[0][0].to(torch.float32)
+        for q, scale in qs[1:]:
+            acc = acc + scale * q.to(torch.float32)
+        red[k] = acc / n
+    return red, new_errs

@@ -204,6 +204,33 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``flash_fwd_tc``, no other kernel; K2's entry of the kernels line
    carries them as ``sharded_launches``.
    Its seconds are printed as ``[main] phases (s), phase 13``.
+14. The last module slice:
+   14a. (in phase 12's NCCL group) internvl2-2b and qwen3-moe-30b-a3b at
+   full width and depth, a batch of 4 prompts of 256 text tokens (numpy
+   seed 5; internvl2-2b's with 256 image embeddings) prefilled once, then
+   8 greedy steps of the unsharded decode, then 8 steps through
+   ``decode_step(ctx=...)`` on a (1, 1) mesh from the caches
+   ``shard_caches`` lays out, fed the same tokens: internvl2-2b's logits
+   and greedy tokens equal bit for bit (its model laid out by
+   ``shard_model``); qwen3-moe's bf16 ``index_add_`` combine adds by
+   atomics (13c), so two runs of its decode differ by a few 1e-2 normwise
+   at 48 layers: its tokens, its normwise error and a second sharded run's
+   are printed, and under ``torch.use_deterministic_algorithms`` its
+   sharded and unsharded logits must be equal bit for bit; the ms a step
+   of both.
+   14b. ``python -m repro_torch.launch.dryrun --all`` in a subprocess
+   (one process a core, at most 8; killed at 600 s): every cell of
+   ``all_cells()`` at (16, 16) and (2, 16, 16) traced on fake CUDA tensors
+   over a fake process group, each cell's line printed; fails on any
+   failed cell, or unless the dry run's last line says that none of its
+   processes held device memory or launched a kernel.
+   14c. The card beside the dry run's data-sheet constants: name and power
+   limit, total memory, a bf16 8192^3 ``torch.matmul``'s rate and a 1 GiB
+   device-to-device copy's (CUDA events, median of 10); and the host time
+   a ``flash_attention`` call takes through the wrapper (which launches
+   directly), the dispatcher op (a traced call's way), the launch function
+   and the ctypes launch, at (1, 128, 1, 1, 64) bf16.
+   Its seconds are printed as ``[main] phases (s), phase 14``.
 
 Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11, 11b, 12a and 13d) runs with
 every launch count set to 0 just before and read just after. The last three lines of standard
@@ -227,14 +254,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
-# fp32 operations per pixel: subtract, clamp, the median from sorted columns
-# at strips of 8 (12 column sorts of 6 and 10 medians of 12 min/max for 8
-# pixels: 24), Laplacian (7 adds, 1 mul, 1 sub), two compares, one and, one
-# count add
-HEDM_OPS_PER_PIXEL = 39
 FRAMES, SIZE = 736, 2048           # the paper's NF-HEDM layer
 GRID_POINTS = 100_000
 CHUNK = 8                          # frames per plain-version call
+DRY_RUN_TIMEOUT_S = 600            # phase 14b's dry run of every cell
 
 
 #: hedm_reduce's ragged shapes (F, H, W, frame type): widths 1, 3, 131 and
@@ -917,24 +940,6 @@ def print_trace(name, r):
           flush=True)
 
 
-def wkv_ops(B, L, H, N, chunk):
-    """Operations of the WKV at chunk ``chunk``, each exp one, as (tensor,
-    fp32): per chunk of qc steps and head, the tensor-core work is the
-    carried term and the state update (two (N,N) contractions a step) and
-    the scores' product with v; the fp32 work is the scores of the qc(qc-1)/2
-    pairs (a subtraction, an exp, a product and a multiply-add a channel),
-    the bonus (3 a channel a step), the state's decay, and log, cumsum and
-    the decay factors of r and k (7 a channel a step)."""
-    tensor = fp32 = 0
-    for c0 in range(0, L, chunk):
-        qc = min(chunk, L - c0)
-        pairs = qc * (qc - 1) // 2
-        tensor += B * H * (4 * N * N * qc + 2 * N * (pairs + qc))
-        fp32 += B * H * (5 * N * pairs + 3 * N * qc + 2 * N * N
-                         + 7 * N * qc)
-    return tensor, fp32
-
-
 def cuda_core_kernel(torch, mod, *args):
     """``mod``'s CUDA-core kernel on bf16 inputs that the wrapper sends to
     the tensor cores: the earlier design, timed beside the new one. ``args``
@@ -1001,8 +1006,7 @@ def time_lm_kernels(np, torch, dev):
     core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
                                           v.data_ptr(), o.data_ptr()),
                       reps=20)
-    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
-    ops = 4 * hd * H * B * pairs                # q.k and p.v, 2 each
+    ops = fa.flops(B, S, H, hd, causal, win)    # q.k and p.v, 2 each
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     out["flash_attention"] = dict(err=err, ms=ms_k, plain_ms=plain,
                                   library_ms=lib, ops=ops, bytes=n_bytes,
@@ -1024,7 +1028,7 @@ def time_lm_kernels(np, torch, dev):
     core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
                                           v.data_ptr(), o.data_ptr()),
                       reps=20)
-    ops = 4 * hd * H * B * S * (S + 1) // 2
+    ops = fa.flops(B, S, H, hd, causal, win)
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     out["flash_attention_qwen3_moe"] = dict(
         err=err, ms=ms_k, plain_ms=plain, library_ms=lib, ops=ops,
@@ -1052,7 +1056,7 @@ def time_lm_kernels(np, torch, dev):
     # the algorithm's work: q.k over 192 and p.v over v's own 128, 2 each
     # (not the padded columns or the P_lo pass); q, k, v and o read or
     # written once, v and o at 128
-    ops = 2 * (hd + MLA_V) * H * B * S * (S + 1) // 2
+    ops = fa.flops(B, S, H, hd, causal, win, dv=MLA_V)
     n_bytes = 2 * B * S * (H * hd + KV * hd + KV * MLA_V + H * MLA_V)
     out["flash_attention_deepseek_v2_lite"] = dict(
         err=err, ms=ms_k, plain_ms=plain, library_ms=lib, library=backend,
@@ -1080,8 +1084,7 @@ def time_lm_kernels(np, torch, dev):
         core_ms = time_ms(torch, lambda: core(q.data_ptr(), k.data_ptr(),
                                               v.data_ptr(), o.data_ptr()),
                           reps=20)
-        pairs = S * (S + 1) // 2 if causal else S * S
-        ops = 4 * hd * H * B * pairs
+        ops = fa.flops(B, S, H, hd, causal, win)
         n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         out[key] = dict(err=err, ms=ms_k, plain_ms=plain, library_ms=lib,
                         ops=ops, bytes=n_bytes,
@@ -1103,10 +1106,7 @@ def time_lm_kernels(np, torch, dev):
     core_ms = time_ms(torch, lambda: core(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), hf.data_ptr()), reps=20)
-    ops = 0
-    for c0 in range(0, L, chunk):               # per chunk of Qc steps:
-        qc = min(chunk, L - c0)                 # C.B^T, M.x, C.h^T, update
-        ops += B * H * (2 * qc * qc * N + 2 * qc * qc * P + 4 * qc * N * P)
+    ops = ms.flops(B, L, H, P, N, chunk)        # C.B^T, M.x, C.h^T, update
     n_bytes = (2 * (2 * x.numel() + Bm.numel() + Cm.numel())
                + 4 * (dt.numel() + A.numel() + B * H * P * N))
     out["mamba2_scan"] = dict(err=err, ms=ms_k, plain_ms=plain,
@@ -1140,7 +1140,7 @@ def time_lm_kernels(np, torch, dev):
     # new one in the [time] line, and the kernels line carries only bound_ms
     n_bytes = (2 * (4 * r.numel()) + 4 * (w.numel() + u.numel()
                                           + B * H * N * N))
-    tensor, fp32 = wkv_ops(B, L, H, N, chunk)
+    tensor, fp32 = wk.ops(B, L, H, N, chunk)
     out["rwkv6_wkv"] = dict(
         err=err, ms=ms_k, plain_ms=plain, library_ms=None,
         ops=tensor + fp32, bytes=n_bytes,
@@ -1977,10 +1977,12 @@ def sharded_prefill(np, torch, dev, mesh2, zero_counts, counted,
     phase 10's prefill (256 image + 1024 text tokens, seed 4) through
     ``prefill_step(ctx=...)`` on a (1, 1) mesh, its launch counts set to 0
     just before and read just after: 24 K2 launches, all on
-    ``flash_fwd_tc``, no other kernel; the logits and every cache equal to
-    the unsharded prefill's (``torch.equal``). Returns K2's launches."""
+    ``flash_fwd_tc``, no other kernel; the logits and every cache (laid
+    out for the sharded decode: at (1, 1) each rank's block is the whole)
+    equal to the unsharded prefill's (``torch.equal``). Returns K2's
+    launches."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.distributed.sharding import local, make_ctx
     from repro_torch.models import model as M
     from repro_torch.serve.engine import prefill_step
     cfg = get_config("internvl2_2b")
@@ -2000,7 +2002,7 @@ def sharded_prefill(np, torch, dev, mesh2, zero_counts, counted,
     pairs = [(logits, ref_logits)] + [
         (a, b) for kind in ref_caches
         for c, r in zip(caches[kind], ref_caches[kind])
-        for a, b in zip(c, r)]
+        for a, b in zip(map(local, c), r)]
     equal = all(torch.equal(a, b) for a, b in pairs)
     err = max(rel_err(a.float(), b.float()) for a, b in pairs)
     want = cfg.n_layers
@@ -2043,15 +2045,236 @@ def sharded_phase(np, torch, dev, zero_counts, counted, tensor_core):
     return launches, seconds
 
 
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 4, 256, 8   # phase 14a
+
+
+def sharded_decode(np, torch, dev, mesh2, seconds):
+    """Phase 14a: internvl2-2b and qwen3-moe-30b-a3b at full width and depth
+    (bf16, seed 0), a batch of 4 prompts of 256 text tokens (numpy seed 5;
+    internvl2-2b's with 256 image embeddings) prefilled once, then 8 greedy
+    steps of the unsharded decode, then 8 steps through
+    ``decode_step(ctx=...)`` on a (1, 1) mesh from the caches
+    ``shard_caches`` lays out, fed the unsharded run's greedy tokens:
+    internvl2-2b's logits and greedy tokens equal bit for bit (its model
+    laid out by ``shard_model``). qwen3-moe's bf16 ``index_add_`` combine
+    adds by atomics in no fixed order (13c), and at 48 layers two runs of
+    the same decode differ by a few 1e-2 normwise, so its tokens and
+    normwise error are printed, with a second sharded run's difference
+    from the first; then the unsharded and the sharded decode (its plain
+    weights over the mesh) run again under deterministic algorithms, where
+    their logits must be equal bit for bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import make_ctx, shard_model
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (decode_step, greedy_sample,
+                                          prefill_step)
+    ctx = make_ctx(mesh2)
+    for arch in ("internvl2_2b", "qwen3_moe_30b_a3b"):
+        cfg = get_config(arch)
+        params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        rng = np.random.default_rng(5)
+        inputs = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT))).to(dev)}
+        if cfg.frontend.kind == "vision_patches":
+            inputs = frontend_inputs(np, torch, cfg, DECODE_BATCH,
+                                     DECODE_PROMPT, dev, seed=5)
+        S = DECODE_PROMPT + (cfg.frontend.num_prefix_tokens
+                             if cfg.frontend.kind == "vision_patches" else 0)
+        logits0, caches = prefill_step(params, cfg, inputs, S + DECODE_STEPS)
+        first = greedy_sample(logits0)[:, None].long()
+        del logits0
+
+        def run(model, c, c_ctx, feed=None):
+            toks, logits, tok = [], [], first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DECODE_STEPS):
+                lg, c = decode_step(model, cfg, tok, c, c_ctx)
+                toks.append(greedy_sample(lg)[:, None].long())
+                tok = toks[-1] if feed is None else feed[:, i:i + 1]
+                logits.append(lg)
+            torch.cuda.synchronize()
+            return (torch.cat(toks, 1), torch.stack(logits),
+                    (time.perf_counter() - t0) / DECODE_STEPS)
+        whole = {k: [type(x)(*(t.clone() for t in x)) for x in layers]
+                 for k, layers in caches.items()}
+        ref_toks, ref_logits, ref_s = run(params, whole, None)
+        del whole
+        if arch == "internvl2_2b":
+            params = shard_model(params, cfg, ctx)
+        prefilled = caches
+        placed = M.shard_caches({k: [type(x)(*(t.clone() for t in x))
+                                     for x in layers]
+                                 for k, layers in caches.items()}, cfg, ctx)
+        # the same tokens in: each step's input is the unsharded run's
+        toks, logits, step_s = run(params, placed, ctx, feed=ref_toks)
+
+        def normwise(x, y):
+            x, y = x[..., :cfg.vocab].float(), y[..., :cfg.vocab].float()
+            return float((x - y).norm() / y.norm())
+        exact = torch.equal(logits, ref_logits)
+        err = normwise(logits, ref_logits)
+        agree = int((toks == ref_toks).sum())
+        line = (f"[sharded] 14a: {cfg.name} decode_step(ctx=...) on a (1, 1) "
+                f"mesh, batch {DECODE_BATCH}, {S} positions prefilled, "
+                f"{DECODE_STEPS} steps fed the unsharded decode's greedy "
+                f"tokens: {agree} of {toks.numel()} greedy tokens the "
+                f"unsharded decode's; logits "
+                f"{'equal bit for bit' if exact else 'differ'} (normwise "
+                f"{err:.3g} over the vocab); {step_s * 1e3:.2f} ms a step "
+                f"against {ref_s * 1e3:.2f} ms unsharded")
+        if arch == "qwen3_moe_30b_a3b":
+            # a second sharded run against the first (the atomics' spread),
+            # then the unsharded and the sharded run under deterministic
+            # algorithms (the combine without atomics), all fed the same
+            # tokens
+            spread = normwise(run(params, M.shard_caches(
+                prefilled, cfg, ctx), ctx, feed=ref_toks)[1], logits)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                det_ref = run(params, {k: [type(x)(*(t.clone() for t in x))
+                                           for x in layers] for k, layers
+                                       in prefilled.items()}, None,
+                              feed=ref_toks)[1]
+                det = run(params, M.shard_caches(prefilled, cfg, ctx), ctx,
+                          feed=ref_toks)[1]
+            finally:
+                torch.use_deterministic_algorithms(False)
+            exact = torch.equal(det, det_ref)
+            line += (f"; two sharded runs differ by {spread:.3g} normwise "
+                     f"(the combine's atomics); under deterministic "
+                     f"algorithms sharded and unsharded logits "
+                     f"{'equal bit for bit' if exact else 'DIFFER'}")
+            del det, det_ref
+        print(line, flush=True)
+        if not (exact and (agree == toks.numel()
+                           or arch == "qwen3_moe_30b_a3b")):
+            raise AssertionError(f"phase 14a: {cfg.name}'s sharded decode "
+                                 f"is not the unsharded one bit for bit")
+        seconds[f"14a_{arch}_step"] = step_s
+        seconds[f"14a_{arch}_step_unsharded"] = ref_s
+        del params, placed, prefilled, caches, toks, logits, ref_toks
+        del ref_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dry_run_phase(seconds):
+    """Phase 14b: ``python -m repro_torch.launch.dryrun --all`` in a
+    subprocess (it opens its own fake default group), the card's program
+    traced on fake CUDA tensors, every cell at (16, 16) and (2, 16, 16),
+    one process a core; its per-cell lines printed. Fails on any failed
+    cell, and unless the dry run's last line says that no process of it
+    held device memory or launched a kernel."""
+    t0 = time.perf_counter()
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(jobs)], capture_output=True, text=True,
+        timeout=DRY_RUN_TIMEOUT_S, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    seconds["14b"] = time.perf_counter() - t0
+    out = proc.stdout.splitlines()
+    for ln in out[:-1]:
+        if ln.startswith(("===", "  traced", "  WARNING", "  FAILED",
+                          "  FAIL")) or ln.endswith("failed"):
+            print(f"[dryrun] {ln}", flush=True)
+    try:
+        last = json.loads(out[-1])
+    except (IndexError, ValueError):
+        last = None
+    print(f"[dryrun] 14b: exit {proc.returncode} in {seconds['14b']:.1f} s "
+          f"({jobs} processes); its last line {json.dumps(last)}",
+          flush=True)
+    if proc.returncode != 0 or last is None:
+        raise AssertionError("phase 14b: the dry run failed: "
+                             + proc.stderr[-3000:])
+    if last["failed"] or any(last["process"].values()):
+        raise AssertionError(f"phase 14b: failed cells, or device memory "
+                             f"or launches in the dry run: {last}")
+
+
+def card_constants(torch, dev, seconds):
+    """Phase 14c: the card beside the dry run's data-sheet constants
+    (`repro_torch.launch.mesh`): its name and power limit, total memory,
+    a bf16 8192^3 ``torch.matmul``'s rate and a device-to-device copy's
+    (1 GiB), each the median of 10 by CUDA events; then the host time a
+    ``flash_attention`` call takes through the wrapper (which launches
+    directly), the dispatcher op (a traced call's way), the launch
+    function and the ctypes launch alone, at a launch-bound shape (1, 128,
+    1, 1, 64) bf16, the mean of 2000 calls of each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_mod
+    props = torch.cuda.get_device_properties(0)
+    a = torch.randn(8192, 8192, dtype=torch.bfloat16, device=dev)
+    b = torch.randn(8192, 8192, dtype=torch.bfloat16, device=dev)
+    mm_ms = time_ms(torch, lambda: torch.matmul(a, b), reps=10)
+    del a, b
+    src = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(torch, lambda: dst.copy_(src), reps=10)
+    del src, dst
+    tflops = 2 * 8192**3 / (mm_ms * 1e-3) / 1e12
+    copy_gbs = 2 * 2**30 / (cp_ms * 1e-3) / 1e9        # read + write
+    q = torch.randn(1, 128, 1, 64, dtype=torch.bfloat16, device=dev)
+    o = torch.empty_like(q)
+    fn = fa._function(fa._SYMBOL_TC)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def direct():
+        fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 128,
+           1, 1, 64, 0.125, 1, 0, stream)
+    op = torch.ops.repro_torch.flash_attention
+    per_call = {}
+    for name, call in (("wrapper", lambda: fa.flash_attention(q, q, q)),
+                       ("op", lambda: op(q, q, q, True, 0, 0.125)),
+                       ("implementation", lambda: fa._launch(
+                           q, q, q, True, 0, 0.125)),
+                       ("ctypes", direct)):
+        for _ in range(100):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            call()
+        torch.cuda.synchronize()
+        per_call[name] = (time.perf_counter() - t0) / 2000 * 1e6
+    del q, o
+    torch.cuda.empty_cache()
+    seconds.update({f"14c_{k}_us": v for k, v in per_call.items()})
+    print(f"[card] 14c: {nvidia_smi()}; total memory "
+          f"{props.total_memory / 1e9:.2f} GB (data sheet "
+          f"{mesh_mod.HBM_PER_CHIP / 1e9:.0f} GB); bf16 8192^3 matmul "
+          f"{mm_ms:.4f} ms = {tflops:.1f} TFLOP/s (data sheet "
+          f"{mesh_mod.PEAK_FLOPS_BF16 / 1e12:.0f}); device-to-device copy of "
+          f"1 GiB {cp_ms:.4f} ms = {copy_gbs:.1f} GB/s read + write (data "
+          f"sheet HBM {mesh_mod.HBM_BW / 1e9:.0f} GB/s); NVLink "
+          f"{mesh_mod.NVLINK_BW / 1e9:.0f} GB/s and a NIC "
+          f"{mesh_mod.NET_BW_PER_GPU / 1e9:.0f} GB/s a card (data sheet, not "
+          f"measurable on one card)", flush=True)
+    print(f"[op] 14c: flash_attention at (1, 128, 1, 1, 64) bf16, host us a "
+          f"call (mean of 2000): the wrapper {per_call['wrapper']:.2f} "
+          f"(launching directly), the dispatcher op {per_call['op']:.2f} "
+          f"(a traced call's way), the launch function "
+          f"{per_call['implementation']:.2f}, the ctypes launch alone "
+          f"{per_call['ctypes']:.2f}: the op would cost "
+          f"{per_call['op'] - per_call['implementation']:.2f} us a call, "
+          f"the wrapper's checks cost "
+          f"{per_call['wrapper'] - per_call['implementation']:.2f}",
+          flush=True)
+
+
 def mesh_phase(np, torch, dev, zero_counts, n_frames, counted,
                tensor_core):
-    """Phases 12 and 13: 12a, 12b and 12c, then 13a-13d, under one NCCL
-    process group of world size 1 (one card), destroyed at the end;
+    """Phases 12 and 13: 12a, 12b and 12c, then 13a-13d and 14a, under one
+    NCCL process group of world size 1 (one card), destroyed at the end;
     everything allocated freed. Returns K1's launches on the staged path,
-    phase 12's seconds, K2's launches in 13d and phase 13's seconds."""
+    phase 12's seconds, K2's launches in 13d and the seconds of phase 13
+    and 14a."""
     import tempfile
     from datetime import timedelta
     import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
     seconds = {}
     t_phase = time.perf_counter()
     torch.cuda.set_device(0)
@@ -2070,6 +2293,10 @@ def mesh_phase(np, torch, dev, zero_counts, n_frames, counted,
             seconds["12"] = time.perf_counter() - t_phase
             sharded_launches, seconds13 = sharded_phase(
                 np, torch, dev, zero_counts, counted, tensor_core)
+            t14 = time.perf_counter()
+            sharded_decode(np, torch, dev, make_mesh(
+                (1, 1), ("data", "model")), seconds13)
+            seconds13["14a"] = time.perf_counter() - t14
         finally:
             dist.destroy_process_group()
     gc.collect()
@@ -2234,7 +2461,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     n_bytes = (ft.numel() * ft.element_size() + dt.numel() * 4 + pixels
                + n_frames * 4)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = HEDM_OPS_PER_PIXEL * pixels / FP32_OPS_PER_S * 1e3
+    ops_ms = hr.flops(*ft.shape) / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[time] hedm_reduce {full} float32: {ms:.4f} ms (median of 20); "
           f"bound {bound_ms:.4f} ms by bytes ({n_bytes / 1e9:.3f} GB; ops "
@@ -2372,6 +2599,13 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         np, torch, dev, zero_counts, n_frames, counted, tensor_core)
     print("[main] phases (s), phase 12: " + json.dumps(mesh_s), flush=True)
     print("[main] phases (s), phase 13: " + json.dumps(sharded_s),
+          flush=True)
+    # 14b. the dry run of every cell on fake ranks; 14c. the card beside the
+    # dry run's constants
+    seconds14 = {}
+    dry_run_phase(seconds14)
+    card_constants(torch, dev, seconds14)
+    print("[main] phases (s), phase 14: " + json.dumps(seconds14),
           flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
 

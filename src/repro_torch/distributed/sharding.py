@@ -184,6 +184,17 @@ class ShardCtx:
     def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
         return self.psum(x, axes) / self.size(axes)
 
+    @torch.no_grad()
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise max over the ranks along ``axes``; no backward
+        (the sharded decode's softmax)."""
+        self._mesh()
+        for a in _axes(axes):
+            if self.shape[a] > 1:
+                x = x.contiguous().clone()
+                dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group(a))
+        return x
+
     def reduce_scatter(self, x: torch.Tensor, dim: int,
                        axis: str) -> torch.Tensor:
         """Sum over ``axis`` and keep this rank's block of ``dim``
@@ -442,6 +453,26 @@ def param_pspecs(cfg: ModelConfig, params: Any, ctx: ShardCtx) -> Any:
 # input/output specs per shape kind
 # ---------------------------------------------------------------------------
 
+def row_axes(ctx: ShardCtx, rows: int, partial: bool = False):
+    """The data-parallel axes ``rows`` rows of a batch split over: all of
+    them where the rows divide their ranks, as the decode caches' batch
+    dim in :func:`cache_pspecs` (and so the sharded prefill's and
+    decode's rows); else None, every rank all rows. With ``partial`` (the
+    train step's microbatches) rows that do not divide them all split
+    over the subset of them, in mesh order, with the most ranks that the
+    rows divide (16 rows over ("pod", "data") of 2 x 16: "data"), and
+    repeat over the rest."""
+    dp = ctx.dp_axes
+    if rows % ctx.size(dp) == 0:
+        return dp
+    if not partial:
+        return None
+    subsets = [tuple(a for i, a in enumerate(dp) if mask >> i & 1)
+               for mask in range(1, 2 ** len(dp))]
+    fits = [s for s in subsets if rows % ctx.size(s) == 0]
+    return max(fits, key=ctx.size) if fits else None
+
+
 def input_pspecs(cfg: ModelConfig, shape: ShapeConfig, ctx: ShardCtx
                  ) -> Dict[str, P]:
     """PartitionSpecs for the input dict (batch over all dp axes)."""
@@ -461,6 +492,19 @@ def input_pspecs(cfg: ModelConfig, shape: ShapeConfig, ctx: ShardCtx
     return specs
 
 
+#: contexts from this capacity on split the KV cache over tp by positions
+LONG_CONTEXT = 131072
+
+
+def splits_kv_heads(ctx: ShardCtx, capacity: int, kv_heads: int) -> bool:
+    """Whether :func:`cache_pspecs` splits a KV cache of ``capacity``
+    positions over tp by its ``kv_heads`` heads (its dim after the
+    positions: an MLA cache's latent or rope dim): they divide over tp and
+    the context is short of :data:`LONG_CONTEXT`."""
+    return (ctx.tp_axis is not None and capacity < LONG_CONTEXT
+            and kv_heads % ctx.shape[ctx.tp_axis] == 0)
+
+
 def cache_pspecs(cfg: ModelConfig, caches: Any, ctx: ShardCtx) -> Any:
     """Decode caches: batch dim over dp; kv-heads/value dims over tp where
     divisible. The reference's rule is written for stacked caches (leading
@@ -472,8 +516,7 @@ def cache_pspecs(cfg: ModelConfig, caches: Any, ctx: ShardCtx) -> Any:
         if path.endswith("length"):
             return P(*((None,) * len(shp)))
         # stacked leading layer dim + batch next
-        b_axes = ctx.dp_axes if shp[1] % ctx.dp_size == 0 else None
-        spec: list = [None, b_axes]
+        spec: list = [None, row_axes(ctx, shp[1])]
         rest = len(shp) - 2
         trailing: list = [None] * rest
         if ctx.tp_axis is not None and rest >= 1:
@@ -485,8 +528,7 @@ def cache_pspecs(cfg: ModelConfig, caches: Any, ctx: ShardCtx) -> Any:
                 # Very long contexts (>=128k) ALWAYS split-KV: the cap dim is
                 # the memory, and cap/tp beats heads/tp when batch is tiny
                 # (zamba2 long_500k: 12.2 -> 0.8 GiB/device).
-                long_ctx = rest >= 2 and shp[2] >= 131072
-                if rest >= 2 and shp[3] % tp == 0 and not long_ctx:
+                if rest >= 2 and splits_kv_heads(ctx, shp[2], shp[3]):
                     trailing[1] = ctx.tp_axis
                 elif shp[2] % tp == 0:
                     trailing[0] = ctx.tp_axis
@@ -510,6 +552,67 @@ def cache_pspecs(cfg: ModelConfig, caches: Any, ctx: ShardCtx) -> Any:
         specs[p] = (P(*leaf_spec(path, (1,) + shp)[1:]) if per_layer
                     else leaf_spec(path, shp))
     return _rebuild(caches, specs)
+
+
+def shard_caches(caches: Any, cfg: ModelConfig, ctx: ShardCtx,
+                 whole: Any = None) -> Any:
+    """Decode caches laid onto ``ctx``'s mesh for the sharded decode: each
+    leaf a ``DTensor`` with the placements of its :func:`cache_pspecs`
+    spec, with no communication. The leaves of ``caches`` are whole
+    (every rank the same, as ``init_decode_state`` gives them) and are
+    cut to this rank's blocks; or, given ``whole`` (the whole caches, of
+    which only the shapes are read: meta tensors will do), a leaf's dim
+    smaller than its whole is already this rank's block of it (the
+    sharded prefill's rows and kv heads) and only the others are cut. The
+    structure of ``caches`` is kept."""
+    mesh = ctx._mesh()
+    given = whole is not None
+    whole = whole if given else caches
+    shapes = {p: tuple(t.shape) for p, t in _tree_paths(whole).items()}
+    spec_flat = _tree_paths(cache_pspecs(cfg, whole, ctx))
+    placed = {}
+    for p, t in _tree_paths(caches).items():
+        places = placements(spec_flat[p], mesh)
+        block = _block_of(t, mesh, places, shapes[p] if given else None)
+        want = list(shapes[p])
+        for i, pl in enumerate(places):
+            if isinstance(pl, Shard):
+                want[pl.dim] //= mesh.size(i)
+        if list(block.shape) != want:
+            raise ValueError(f"cache leaf {p}: {tuple(t.shape)} is neither "
+                             f"whole {shapes[p]} nor this rank's block "
+                             f"{tuple(want)} along each dim")
+        placed[p] = DTensor.from_local(block, mesh, places, run_check=False)
+    return _rebuild(caches, placed)
+
+
+def shard_dims(t: torch.Tensor) -> Dict[int, Tuple[str, ...]]:
+    """Each dim of a ``DTensor`` that is sharded -> the mesh axes it is
+    sharded over, in the mesh's order (empty for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return {}
+    names = t.device_mesh.mesh_dim_names
+    out: Dict[int, Tuple[str, ...]] = {}
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            out[pl.dim] = out.get(pl.dim, ()) + (names[i],)
+    return out
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local block (its storage), or the tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def placed_like(block: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``block`` as this rank's block of a ``DTensor`` with ``like``'s
+    mesh, placements, shape and stride (``block`` itself when ``like`` is
+    plain)."""
+    if not isinstance(like, DTensor):
+        return block
+    return DTensor.from_local(block, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
 
 
 def make_ctx(mesh, sequence_parallel: bool = False) -> ShardCtx:
@@ -564,13 +667,20 @@ def distribute_params(params: Any, specs: Any, mesh) -> Any:
     return _rebuild(params, placed)
 
 
-def _block_of(full: torch.Tensor, mesh, places: Sequence) -> torch.Tensor:
+def _block_of(full: torch.Tensor, mesh, places: Sequence,
+              whole: Optional[Sequence[int]] = None) -> torch.Tensor:
     """This rank's block of ``full`` under DTensor ``places`` on ``mesh``:
-    cut along each ``Shard`` dim, mesh dims in order."""
+    cut along each ``Shard`` dim, mesh dims in order, and copied. Given
+    ``whole`` (the whole tensor's shape), a dim of ``full`` smaller than
+    its whole is taken as this rank's block already and left; nothing
+    cut, ``full`` itself comes back."""
+    have = {d for d, n in enumerate(whole or ()) if full.shape[d] != n}
+    block = full
     for i, pl in enumerate(places):
-        if isinstance(pl, Shard):
-            full = full.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
-    return full.clone()
+        if isinstance(pl, Shard) and pl.dim not in have:
+            block = block.chunk(mesh.size(i),
+                                dim=pl.dim)[mesh.get_local_rank(i)]
+    return block.clone() if whole is None or block is not full else block
 
 
 @torch.no_grad()

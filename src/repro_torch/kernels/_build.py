@@ -24,6 +24,9 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Sequence, Tuple
 
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -126,6 +129,17 @@ def refuse_grad(name: str, *inputs) -> None:
             f"{name} has no backward: a CUDA input requires grad. Call it "
             f"under torch.no_grad(), or train through the models' plain "
             f"mixers (use_kernels=False), as loss_fn does")
+
+
+def traced(*inputs) -> bool:
+    """Whether a kernel's call on ``inputs`` is traced rather than run: a
+    fake tensor among them, or a dispatch mode (``FakeTensorMode``,
+    ``FlopCounterMode``, `repro_torch.distributed.op_cost.OpCost`) active.
+    Such a call goes through the kernel's dispatcher op, which the modes
+    see; any other calls the launch directly, as the op's dispatch costs
+    tens of microseconds a call on the host."""
+    return (_get_current_dispatch_mode() is not None
+            or any(isinstance(t, FakeTensor) for t in inputs))
 
 
 def check(name: str, err: int) -> None:

@@ -26,6 +26,14 @@ launch, or hd > 192, raises. ``flash_attention.launches`` counts kernel
 launches of both, ``flash_attention.launches_tc`` those of the tensor-core
 kernel.
 
+The launch is also a dispatcher op (``torch.library.custom_op``
+``repro_torch::flash_attention``): its implementation is the launch (and
+the place that counts it), its fake implementation gives the outputs'
+shapes on fake tensors, and :func:`flops` is its registered FLOP formula,
+so `repro_torch.launch.dryrun` traces the card's program with no build
+and no launch. Only a traced call (``_build.traced``: fake tensors, or a
+dispatch mode) goes through the op; any other launches directly.
+
 The TPU kernel's ``block_q``/``block_k`` sized VMEM tiles and ``interpret``
 chose Pallas' interpreter; the card's tiles are fixed by its shared memory,
 and the CPU path is :func:`reference` itself. The source note in
@@ -38,6 +46,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -112,7 +121,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`on_tensor_cores` names (contiguous tensors, hd <= 192 and, on
     the CUDA cores, at most 64 query heads per kv head; anything else
     raises, as does an input that requires grad in grad mode: the kernel
-    has no backward); a CPU input runs :func:`reference`."""
+    has no backward). A traced call goes through the dispatcher op
+    ``repro_torch::flash_attention`` instead: on fake tensors its fake
+    implementation gives the output's shape and :func:`flops` its work,
+    with no build and no launch. A CPU input runs :func:`reference`."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale)
@@ -121,18 +133,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
+    hd = q.shape[3]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes hd <= {MAX_HEAD_DIM}, got "
+                         f"{hd}")
+    run = _op if _build.traced(q, k, v) else _launch
+    return run(q, k, v, bool(causal), int(window),
+               float(hd ** -0.5 if scale is None else scale))
+
+
+flash_attention.launches = 0
+flash_attention.launches_tc = 0
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, scale: float) -> torch.Tensor:
+    """One kernel launch on CUDA tensors (the op's implementation)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     tc = on_tensor_cores(q, k, v)
-    if hd > MAX_HEAD_DIM or (not tc and H // KV > MAX_GROUP):
-        raise ValueError(f"flash_attention takes hd <= {MAX_HEAD_DIM} and at "
-                         f"most {MAX_GROUP} query heads per kv head, got hd "
-                         f"{hd}, {H // KV}")
+    if not tc and H // KV > MAX_GROUP:
+        raise ValueError(f"flash_attention takes at most {MAX_GROUP} query "
+                         f"heads per kv head on the CUDA cores, got "
+                         f"{H // KV}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if scale is None:
-        scale = hd ** -0.5
     fn = _function(_SYMBOL_TC if tc else _SYMBOLS[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -145,8 +171,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
-flash_attention.launches_tc = 0
+_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _launch, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "float scale) -> Tensor")
+
+
+@_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+def attention_pairs(S: int, causal: bool = True, window: int = 0) -> int:
+    """(query, key) pairs the mask lets through at length S: causal
+    S(S+1)/2, bidirectional S^2, a window keeping the keys j with i - window
+    < j (and j <= i when causal)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2 if causal else S * S
+    if causal:          # min(i + 1, window) keys a query
+        return window * (window + 1) // 2 + (S - window) * window
+    # keys j > i - window, up to S - 1: S - max(0, i - window + 1) a query
+    tail = S - window + 1
+    return S * S - (tail - 1) * tail // 2
+
+
+def flops(B: int, S: int, H: int, hd: int, causal: bool = True,
+          window: int = 0, dv: Optional[int] = None) -> int:
+    """The kernel's work: q.k over hd and p.v over ``dv`` (hd unless said),
+    2 operations a multiply-add, for each (query, key) pair the mask lets
+    through (:func:`attention_pairs`) of each head. 30.08 GFLOP at
+    zamba2-7b's prefill (1, 2048, 32, hd 112, causal)."""
+    dv = hd if dv is None else dv
+    return 2 * (hd + dv) * H * B * attention_pairs(S, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flop_formula(q_shape, k_shape, v_shape, causal, window, scale, *args,
+                  **kwargs) -> int:
+    B, S, H, hd = q_shape
+    return flops(B, S, H, hd, causal, window)
 
 
 def on_tensor_cores(q: torch.Tensor, k: torch.Tensor,

@@ -12,6 +12,14 @@ hand-written kernel ``csrc/hedm_reduce.cu`` (built for sm_90a at first use,
 see `repro_torch.kernels._build`) or raises; on a CPU tensor it runs
 :func:`reference`. ``hedm_reduce.launches`` counts kernel launches.
 
+The launch is also a dispatcher op (``torch.library.custom_op``
+``repro_torch::hedm_reduce``): its implementation is the launch (and the
+place that counts it), its fake implementation gives the outputs' shapes
+on fake tensors, and :func:`flops` is its registered FLOP formula, so
+`repro_torch.launch.dryrun` traces the card's program with no build and
+no launch. Only a traced call (``_build.traced``: fake tensors, or a
+dispatch mode) goes through the op; any other launches directly.
+
 The TPU kernel's knobs are gone: ``tile_rows`` and ``vmem_budget_bytes``
 sized row tiles to the TPU's VMEM, and a GPU thread's strip of 8 columns
 walking a band of 128 rows is fixed by the card, not by the frame;
@@ -28,6 +36,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -81,8 +90,10 @@ def hedm_reduce(frames: torch.Tensor, dark: torch.Tensor,
     device -> (mask (F,H,W) uint8, counts (F,) int32) on that device.
 
     A CUDA input launches the kernel on the current stream (contiguous
-    tensors only; anything else raises); a CPU input runs
-    :func:`reference`."""
+    tensors only; anything else raises). A traced call goes through the
+    dispatcher op ``repro_torch::hedm_reduce`` instead: on fake tensors its
+    fake implementation gives the outputs' shapes and :func:`flops` its
+    work. A CPU input runs :func:`reference`."""
     _check(frames, dark)
     if frames.device.type == "cpu":
         return reference(frames, dark, threshold)
@@ -90,9 +101,20 @@ def hedm_reduce(frames: torch.Tensor, dark: torch.Tensor,
         raise ValueError(f"unsupported device {frames.device}")
     if not (frames.is_contiguous() and dark.is_contiguous()):
         raise ValueError("hedm_reduce needs contiguous frames and dark")
+    if frames.shape[0] > _MAX_FRAMES:
+        raise ValueError(f"at most {_MAX_FRAMES} frames per launch, got "
+                         f"{frames.shape[0]}")
+    run = _op if _build.traced(frames, dark) else _launch
+    return run(frames, dark, float(threshold))
+
+
+hedm_reduce.launches = 0
+
+
+def _launch(frames: torch.Tensor, dark: torch.Tensor,
+            threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch on CUDA tensors (the op's implementation)."""
     F, H, W = frames.shape
-    if F > _MAX_FRAMES:
-        raise ValueError(f"at most {_MAX_FRAMES} frames per launch, got {F}")
     mask = torch.empty((F, H, W), dtype=torch.uint8, device=frames.device)
     counts = torch.zeros((F,), dtype=torch.int32, device=frames.device)
     if mask.numel() == 0:
@@ -107,7 +129,34 @@ def hedm_reduce(frames: torch.Tensor, dark: torch.Tensor,
     return mask, counts
 
 
-hedm_reduce.launches = 0
+_op = torch.library.custom_op(
+    "repro_torch::hedm_reduce", _launch, mutates_args=(),
+    schema="(Tensor frames, Tensor dark, float threshold) -> "
+           "(Tensor, Tensor)")
+
+
+@_op.register_fake
+def _(frames, dark, threshold):
+    return (torch.empty_like(frames, dtype=torch.uint8),
+            frames.new_empty((frames.shape[0],), dtype=torch.int32))
+
+
+#: fp32 operations a pixel: subtract, clamp, the median from sorted columns
+#: at strips of 8 (12 column sorts of 6 and 10 medians of 12 min/max for 8
+#: pixels: 24), Laplacian (7 adds, 1 mul, 1 sub), two compares, one and,
+#: one count add
+OPS_PER_PIXEL = 39
+
+
+def flops(F: int, H: int, W: int) -> int:
+    """The kernel's fp32 operations: :data:`OPS_PER_PIXEL` a pixel."""
+    return OPS_PER_PIXEL * F * H * W
+
+
+@register_flop_formula(torch.ops.repro_torch.hedm_reduce)
+def _flop_formula(frames_shape, dark_shape, threshold, *args,
+                  **kwargs) -> int:
+    return flops(*frames_shape)
 
 
 _FUNCTIONS = {}

@@ -22,6 +22,14 @@ No kernel falls back to the other or to :func:`reference`: a failed build
 or launch raises. ``mamba2_scan.launches`` counts kernel launches of both,
 ``mamba2_scan.launches_tc`` those of the tensor-core kernel.
 
+The launch is also a dispatcher op (``torch.library.custom_op``
+``repro_torch::mamba2_scan``): its implementation is the launch (and the
+place that counts it), its fake implementation gives the outputs' shapes
+on fake tensors, and :func:`flops` is its registered FLOP formula, so
+`repro_torch.launch.dryrun` traces the card's program with no build and
+no launch. Only a traced call (``_build.traced``: fake tensors, or a
+dispatch mode) goes through the op; any other launches directly.
+
 Both take any L: the last chunk may be short (the TPU kernel asserted
 ``L % chunk == 0``). The source note in ``csrc/mamba2_scan.cu`` says what
 bounds the kernels and what their designs do about it.
@@ -32,6 +40,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -126,9 +135,11 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     A CUDA input launches a kernel on the current stream, the one
     :func:`on_tensor_cores` names (contiguous tensors, P <= 64, N <= 64,
-    chunk <= 128; anything else raises, as does an input that requires grad
-    in grad mode: the kernel has no backward); a CPU input runs
-    :func:`reference`."""
+    chunk <= 128; anything else raises, as does an input that requires
+    grad in grad mode: the kernel has no backward). A traced call goes
+    through the dispatcher op ``repro_torch::mamba2_scan`` instead: on fake
+    tensors its fake implementation gives the outputs' shapes and
+    :func:`flops` its work. A CPU input runs :func:`reference`."""
     _check(x, dt, A, Bm, Cm)
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
@@ -139,11 +150,24 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.refuse_grad("mamba2_scan", x, dt, A, Bm, Cm)
     if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
         raise ValueError("mamba2_scan needs contiguous inputs")
-    B, L, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
+    P, N = x.shape[3], Bm.shape[3]
     if P > MAX_P or N > MAX_N:
         raise ValueError(f"mamba2_scan takes P <= {MAX_P} and N <= {MAX_N}, "
                          f"got P {P}, N {N}")
+    run = _op if _build.traced(x, dt, A, Bm, Cm) else _launch
+    return run(x, dt, A, Bm, Cm, int(chunk))
+
+
+mamba2_scan.launches = 0
+mamba2_scan.launches_tc = 0
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch on CUDA tensors (the op's implementation)."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
@@ -161,8 +185,37 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
-mamba2_scan.launches = 0
-mamba2_scan.launches_tc = 0
+_op = torch.library.custom_op(
+    "repro_torch::mamba2_scan", _launch, mutates_args=(),
+    schema="(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
+           "int chunk) -> (Tensor, Tensor)")
+
+
+@_op.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    B, L, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((B, H, P, Bm.shape[3]), dtype=torch.float32))
+
+
+def flops(B: int, L: int, H: int, P: int, N: int,
+          chunk: int = MAX_CHUNK) -> int:
+    """The kernel's products, 2 operations a multiply-add, for each chunk of
+    qc steps and head: C.B^T (qc^2 N), M.x (qc^2 P), C.h^T and the state
+    update (2 qc N P each). 11.27 GFLOP at zamba2-7b's prefill (1, 2048,
+    112, 64, N 64, chunk 128)."""
+    total = 0
+    for c0 in range(0, L, chunk):
+        qc = min(chunk, L - c0)
+        total += B * H * (2 * qc * qc * N + 2 * qc * qc * P + 4 * qc * N * P)
+    return total
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba2_scan)
+def _flop_formula(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk,
+                  *args, **kwargs) -> int:
+    B, L, H, P = x_shape
+    return flops(B, L, H, P, B_shape[3], chunk)
 
 
 def on_tensor_cores(x: torch.Tensor, Bm: torch.Tensor,

@@ -1,8 +1,9 @@
 """Public kernel ops, the counterpart of ``repro.kernels.ops``.
 
-Each op runs its hand-written CUDA kernel on CUDA tensors and its plain
-PyTorch version on CPU tensors. Every kernel of the reference has its
-counterpart here.
+Each op runs its hand-written CUDA kernel on CUDA tensors (a traced call
+through a ``torch.library.custom_op`` with a fake implementation and a
+FLOP formula) and its plain PyTorch version on CPU tensors. Every kernel of the
+reference has its counterpart here.
 """
 from __future__ import annotations
 

@@ -25,6 +25,14 @@ or launch raises. ``rwkv6_wkv.launches`` counts wrapper calls that
 launched a kernel (one a call, however many launches the call makes),
 ``rwkv6_wkv.launches_tc`` those on the tensor-core kernel.
 
+The launch is also a dispatcher op (``torch.library.custom_op``
+``repro_torch::rwkv6_wkv``): its implementation is the launch (and the
+place that counts it), its fake implementation gives the outputs' shapes
+on fake tensors, and :func:`flops` is its registered FLOP formula, so
+`repro_torch.launch.dryrun` traces the card's program with no build and
+no launch. Only a traced call (``_build.traced``: fake tensors, or a
+dispatch mode) goes through the op; any other launches directly.
+
 Both take any L: the last chunk may be short (the TPU wrapper shrank its
 chunk to a divisor of L). Both read the exclusive log-decay sum ``lprev[q]``
 as ``lcum[q-1]`` itself, where the TPU kernel computes ``lcum - lw``. The
@@ -38,6 +46,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -113,7 +122,10 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CUDA input launches a kernel on the current stream, the one
     :func:`on_tensor_cores` names (contiguous tensors, N <= 64, chunk <=
     64; anything else raises, as does an input that requires grad in grad
-    mode: the kernel has no backward); a CPU input runs :func:`reference`."""
+    mode: the kernel has no backward). A traced call goes through the
+    dispatcher op ``repro_torch::rwkv6_wkv`` instead: on fake tensors its
+    fake implementation gives the outputs' shapes and :func:`flops` its
+    work. A CPU input runs :func:`reference`."""
     _check(r, k, v, w, u)
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
@@ -124,9 +136,22 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.refuse_grad("rwkv6_wkv", r, k, v, w, u)
     if not all(t.is_contiguous() for t in (r, k, v, w, u)):
         raise ValueError("rwkv6_wkv needs contiguous inputs")
+    if r.shape[3] > MAX_N:
+        raise ValueError(f"rwkv6_wkv takes N <= {MAX_N}, got {r.shape[3]}")
+    run = _op if _build.traced(r, k, v, w, u) else _launch
+    return run(r, k, v, w, u, int(chunk))
+
+
+rwkv6_wkv.launches = 0
+rwkv6_wkv.launches_tc = 0
+
+
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the kernel on CUDA tensors (three launches on the
+    tensor cores; the op's implementation)."""
     B, L, H, N = r.shape
-    if N > MAX_N:
-        raise ValueError(f"rwkv6_wkv takes N <= {MAX_N}, got {N}")
     out = torch.empty_like(r)
     s = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     if out.numel() == 0:
@@ -148,8 +173,47 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, s
 
 
-rwkv6_wkv.launches = 0
-rwkv6_wkv.launches_tc = 0
+_op = torch.library.custom_op(
+    "repro_torch::rwkv6_wkv", _launch, mutates_args=(),
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, int chunk) "
+           "-> (Tensor, Tensor)")
+
+
+@_op.register_fake
+def _(r, k, v, w, u, chunk):
+    B, L, H, N = r.shape
+    return (torch.empty_like(r),
+            r.new_empty((B, H, N, N), dtype=torch.float32))
+
+
+def ops(B: int, L: int, H: int, N: int,
+        chunk: int = CHUNK) -> Tuple[int, int]:
+    """Operations of the WKV at chunk ``chunk``, each exp one, as (tensor,
+    fp32): per chunk of qc steps and head, the tensor-core work is the
+    carried term and the state update (two (N,N) contractions a step) and
+    the scores' product with v; the fp32 work is the scores of the
+    qc(qc-1)/2 pairs (a subtraction, an exp, a product and a multiply-add a
+    channel), the bonus (3 a channel a step), the state's decay, and log,
+    cumsum and the decay factors of r and k (7 a channel a step)."""
+    tensor = fp32 = 0
+    for c0 in range(0, L, chunk):
+        qc = min(chunk, L - c0)
+        pairs = qc * (qc - 1) // 2
+        tensor += B * H * (4 * N * N * qc + 2 * N * (pairs + qc))
+        fp32 += B * H * (5 * N * pairs + 3 * N * qc + 2 * N * N
+                         + 7 * N * qc)
+    return tensor, fp32
+
+
+def flops(B: int, L: int, H: int, N: int, chunk: int = CHUNK) -> int:
+    """All of :func:`ops`, both kinds."""
+    return sum(ops(B, L, H, N, chunk))
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_wkv)
+def _flop_formula(r_shape, k_shape, v_shape, w_shape, u_shape, chunk,
+                  *args, **kwargs) -> int:
+    return flops(*r_shape, chunk)
 
 
 def on_tensor_cores(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

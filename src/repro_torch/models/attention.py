@@ -34,7 +34,11 @@ heads do not divide tp, k and v are computed whole, repeated to the query
 heads and cut to this rank's block, as the reference does. Where the query
 heads do not divide tp, every tp rank computes all heads. The prefill
 hands the kernel plain contiguous local tensors, and its caches come back
-whole (gathered over tp).
+whole (gathered over tp). The decode over a mesh takes its caches as
+``shard_caches`` lays them out by ``cache_pspecs`` and keeps them so: the
+kv heads over tp, or for long contexts and kv heads that do not divide tp
+the positions (split-KV, the softmax's max and sum combined over tp); MLA's
+latent caches on their latent and rope dims, or their positions.
 """
 from __future__ import annotations
 
@@ -45,7 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
+from repro_torch.distributed.sharding import (fsdp_gather, local,
+                                              placed_like, shard_dims,
+                                              splits_kv_heads, tp_part,
+                                              tp_whole)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Params, apply_rope, const, dense_init,
                                        dt, rmsnorm_nohead, tp_region)
@@ -330,7 +337,7 @@ def _write_slots(buf: torch.Tensor, slot: torch.Tensor,
 
 
 def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
-                     cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                     cache: KVCache, ctx=None) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode. x: (B,1,D). Returns (out (B,1,D), cache).
 
     Writes this token's key and value into ``cache.k``/``cache.v`` in place
@@ -338,27 +345,113 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
     the whole cache per step) and returns the cache with ``length + 1``.
     Sliding-window configs keep a ring of ``window`` slots. A slot whose
     position is past the capacity (an idle slot that kept counting) writes
-    nothing, as the reference's scatter drops out-of-range rows."""
+    nothing, as the reference's scatter drops out-of-range rows. Over a
+    mesh (``ctx``) the cache is laid out by ``cache_pspecs``
+    (:func:`_decode_attention_tp`) and x is this rank's rows."""
     if cfg.attention == "mla":
-        return mla_decode(params, cfg, x, cache)
+        return mla_decode(params, cfg, x, cache, ctx)
+    if ctx is not None:
+        return _decode_attention_tp(params, cfg, x, cache, ctx)
+    pos = cache.length
+    out = _gqa_decode(params, cfg, x, cache.k, cache.v, pos)
+    return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+def _gqa_decode(params, cfg: ModelConfig, x: torch.Tensor, k_buf, v_buf,
+                pos: torch.Tensor) -> torch.Tensor:
+    """The decode of :func:`decode_attention` on the heads of the weights
+    and buffers it is given, positions ``pos`` (B,); returns the output
+    projection."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    pos = cache.length
     q, k, v = _project_qkv(params, cfg, x, pos[:, None])
-    cap = cache.k.shape[1]
+    cap = k_buf.shape[1]
     slot = (pos % cap if cfg.sliding_window else pos).long()
-    _write_slots(cache.k, slot, k[:, 0])
-    _write_slots(cache.v, slot, v[:, 0])
+    _write_slots(k_buf, slot, k[:, 0])
+    _write_slots(v_buf, slot, v[:, 0])
     slots = torch.arange(cap, device=x.device)[None, :]
     if cfg.sliding_window:
         valid = slots < torch.clamp(pos + 1, max=cap)[:, None]
     else:
         valid = slots <= pos[:, None]
     bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, None, :]
-    out = grouped_sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), bias,
+    out = grouped_sdpa(q, k_buf.to(q.dtype), v_buf.to(q.dtype), bias,
                        hd ** -0.5)
-    out = out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
-    return out, KVCache(cache.k, cache.v, pos + 1)
+    return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
+
+
+def _decode_attention_tp(params, cfg: ModelConfig, x: torch.Tensor,
+                         cache: KVCache, ctx) -> Tuple[torch.Tensor, KVCache]:
+    """GQA decode over the mesh, on the cache's ``cache_pspecs`` layout
+    (``DTensor`` leaves from ``shard_caches``): batch rows over the data
+    axes (``length`` whole on every rank), and over tp either the kv heads
+    (this rank's heads as in the prefill, the output summed over tp) or,
+    for long contexts or kv heads that do not divide tp, the positions
+    (split-KV: :func:`_gqa_decode_split`). A cache whole over tp runs every
+    head on every rank."""
+    dims = shard_dims(cache.k)
+    kb, vb = local(cache.k), local(cache.v)
+    pos = ctx.constrain(local(cache.length), dims.get(0))
+    new = cache._replace(length=placed_like(local(cache.length) + 1,
+                                            cache.length))
+    params = fsdp_gather(params, cfg, ctx)
+    tp = ctx.tp_axis
+    if ctx.tp_size == 1 or dims.get(2) == (tp,):
+        p, lcfg, _, partial = _gqa_split(params, cfg, ctx)
+        out = _gqa_decode(p, lcfg, x, kb, vb, pos)
+        return (ctx.psum(out, tp) if partial else out), new
+    hd = cfg.resolved_head_dim
+    p = _set(params, ctx, tp_whole, {
+        "wq": (1, cfg.n_heads * hd), "bq": (0, cfg.n_heads * hd),
+        "wo": (0, cfg.n_heads * hd), "wk": (1, cfg.n_kv_heads * hd),
+        "wv": (1, cfg.n_kv_heads * hd), "bk": (0, cfg.n_kv_heads * hd),
+        "bv": (0, cfg.n_kv_heads * hd)})
+    if dims.get(1) == (tp,):
+        return _gqa_decode_split(p, cfg, x, kb, vb, pos, ctx), new
+    return _gqa_decode(p, cfg, x, kb, vb, pos), new
+
+
+def _split_probs(scores: torch.Tensor, valid: torch.Tensor, ctx):
+    """Softmax over keys split over tp: ``scores`` (..., T_local) fp32 of
+    this rank's keys, ``valid`` broadcast over them. The max and the sum
+    are combined over tp (the max first), so every rank holds its keys'
+    probabilities of the whole softmax, exact up to rounding."""
+    scores = torch.where(valid, scores, NEG_INF)
+    m = ctx.pmax(scores.amax(dim=-1, keepdim=True), ctx.tp_axis)
+    e = torch.where(valid, torch.exp(scores - m), 0.0)
+    return e / ctx.psum(e.sum(dim=-1, keepdim=True), ctx.tp_axis)
+
+
+def _gqa_decode_split(p, cfg: ModelConfig, x: torch.Tensor, kb, vb,
+                      pos: torch.Tensor, ctx) -> torch.Tensor:
+    """Split-KV decode: this rank holds slots [r cap_l, (r + 1) cap_l) of
+    the cache (a ring for a sliding window) and every head; it writes this
+    token's key and value only when its slot falls there, attends over its
+    slots (:func:`_split_probs`), and the weighted values are summed over
+    tp in float32. ``p`` holds the whole weights."""
+    B = x.shape[0]
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    cap_l = kb.shape[1]
+    cap = cap_l * ctx.tp_size
+    lo = ctx.tp_rank * cap_l
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    slot = (pos % cap if cfg.sliding_window else pos).long() - lo
+    here = torch.where((slot >= 0) & (slot < cap_l), slot, cap_l)
+    _write_slots(kb, here, k[:, 0])
+    _write_slots(vb, here, v[:, 0])
+    slots = lo + torch.arange(cap_l, device=x.device)[None, :]
+    if cfg.sliding_window:
+        valid = slots < torch.clamp(pos + 1, max=cap)[:, None]
+    else:
+        valid = slots <= pos[:, None]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          kb.float()) * hd ** -0.5
+    probs = _split_probs(scores, valid[:, None, None, None, :], ctx)
+    o = torch.einsum("bkgst,btkh->bskgh", probs.to(vb.dtype),
+                     vb.to(q.dtype))
+    o = ctx.psum(o.float(), ctx.tp_axis).to(q.dtype)
+    return o.reshape(B, 1, H * hd) @ p["wo"]
 
 
 def attention_prefill(params, cfg: ModelConfig, x: torch.Tensor,
@@ -367,7 +460,9 @@ def attention_prefill(params, cfg: ModelConfig, x: torch.Tensor,
     """Like :func:`attention`, but also returns the populated KV cache for
     decode: absolute slots, or for a sliding window a ring where position p
     lives at slot p % cap; for MLA the latent caches at slots [0, S). Over
-    a mesh the cache holds every kv head of this rank's rows."""
+    a mesh the cache holds this rank's rows, and its kv heads where the
+    decode's layout splits them over tp (``splits_kv_heads``), else every
+    kv head."""
     B, S, _ = x.shape
     dtype = dt(cfg.compute_dtype)
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -386,7 +481,9 @@ def attention_prefill(params, cfg: ModelConfig, x: torch.Tensor,
         out, k, v = _attend(params, cfg, x, positions)
     else:
         out, k, v = _attention_tp(params, cfg, x, positions, True, ctx)
-        if k.shape[2] != cfg.n_kv_heads:         # this rank's kv heads
+        cap = min(capacity, cfg.sliding_window or capacity)
+        if k.shape[2] != cfg.n_kv_heads and not splits_kv_heads(
+                ctx, cap, cfg.n_kv_heads):       # this rank's kv heads
             k, v = (ctx.gather(t, None, None, ctx.tp_axis) for t in (k, v))
     win = cfg.sliding_window
     if win and win < max(S, capacity):
@@ -556,32 +653,117 @@ def blocked_mla_core(q_nope, q_rope, k_nope, k_rope, v, scale: float,
 
 
 def mla_decode(params, cfg: ModelConfig, x: torch.Tensor,
-               cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+               cache: KVCache, ctx=None) -> Tuple[torch.Tensor, KVCache]:
     """Absorbed-form one-token decode over the latent caches: score =
     (q_nope W_uk) c_kv + q_rope k_rope, in fp32; the probabilities rounded
     to the cache's type; the latent context through W_uv and wo. This
     token's c_kv and k_rope are written into the caches in place, and a slot
-    past the capacity writes nothing, as in :func:`decode_attention`."""
-    m = cfg.mla
-    B = x.shape[0]
-    H, r = cfg.n_heads, m.kv_lora_rank
+    past the capacity writes nothing, as in :func:`decode_attention`. Over
+    a mesh (``ctx``) the caches follow ``cache_pspecs``
+    (:func:`_mla_decode_tp`)."""
+    if ctx is not None:
+        return _mla_decode_tp(params, cfg, x, cache, ctx)
     pos = cache.length
     q_nope, q_rope = _mla_q(params, cfg, x, pos[:, None])
     c_kv, k_rope = _mla_latent(params, cfg, x, pos[:, None])
     _write_slots(cache.k, pos.long(), c_kv[:, 0])
     _write_slots(cache.v, pos.long(), k_rope[:, 0])
-    cap = cache.k.shape[1]
+    return _mla_absorbed(params, cfg, q_nope, q_rope, cache.k, cache.v,
+                         pos), KVCache(cache.k, cache.v, pos + 1)
+
+
+def _mla_absorbed(params, cfg: ModelConfig, q_nope, q_rope, ck, cr,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """The absorbed attention of :func:`mla_decode` over the latent caches
+    ``ck`` (B,cap,r) and ``cr`` (B,cap,rope) after this token's write."""
+    m = cfg.mla
+    B = q_nope.shape[0]
+    H, r = cfg.n_heads, m.kv_lora_rank
+    cap = ck.shape[1]
     w_uk = params["w_uk"].reshape(r, H, m.qk_nope_head_dim)
     q_abs = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], w_uk)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    scores = (torch.einsum("bhr,btr->bht", q_abs.float(), cache.k.float())
+    scores = (torch.einsum("bhr,btr->bht", q_abs.float(), ck.float())
               + torch.einsum("bhe,bte->bht", q_rope[:, 0].float(),
-                             cache.v.float())) * scale
-    valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
+                             cr.float())) * scale
+    valid = torch.arange(cap, device=q_nope.device)[None, :] <= pos[:, None]
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cache.k.dtype)
-    ctx = torch.einsum("bht,btr->bhr", probs, cache.k)      # latent context
+    probs = torch.softmax(scores, dim=-1).to(ck.dtype)
+    lat = torch.einsum("bht,btr->bhr", probs, ck)           # latent context
     w_uv = params["w_uv"].reshape(r, H, m.v_head_dim)
-    out = torch.einsum("bhr,rhe->bhe", ctx, w_uv).reshape(
+    return torch.einsum("bhr,rhe->bhe", lat, w_uv).reshape(
         B, 1, H * m.v_head_dim) @ params["wo"]
-    return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+def _mla_decode_tp(params, cfg: ModelConfig, x: torch.Tensor,
+                   cache: KVCache, ctx) -> Tuple[torch.Tensor, KVCache]:
+    """MLA decode over the mesh. The latent caches follow ``cache_pspecs``:
+    batch rows over the data axes, and over tp either the latent and rope
+    dims (the rule's choice where they divide tp: every head on every rank,
+    the scores' sum over those dims and the latent context's product with
+    W_uv summed over tp) or the positions (split-KV, long contexts: every
+    head, this rank's slots, the softmax and the latent context combined
+    over tp); at tp 1, or with caches whole over tp, the plain decode."""
+    m = cfg.mla
+    H, r = cfg.n_heads, m.kv_lora_rank
+    dims_k, dims_v = shard_dims(cache.k), shard_dims(cache.v)
+    ck, cr = local(cache.k), local(cache.v)
+    pos = ctx.constrain(local(cache.length), dims_k.get(0))
+    new = cache._replace(length=placed_like(local(cache.length) + 1,
+                                            cache.length))
+    tp = ctx.tp_axis
+    p = _set(fsdp_gather(params, cfg, ctx), ctx, tp_whole, {
+        "wq": (1, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+        "w_uk": (1, H * m.qk_nope_head_dim),
+        "w_uv": (1, H * m.v_head_dim), "wo": (0, H * m.v_head_dim)})
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
+    c_kv, k_rope = _mla_latent(p, cfg, x, pos[:, None])
+    split_k, split_v = dims_k.get(2) == (tp,), dims_v.get(2) == (tp,)
+    cap_k, cap_v = dims_k.get(1) == (tp,), dims_v.get(1) == (tp,)
+    if ctx.tp_size == 1 or not (split_k or split_v or cap_k or cap_v):
+        _write_slots(ck, pos.long(), c_kv[:, 0])
+        _write_slots(cr, pos.long(), k_rope[:, 0])
+        return _mla_absorbed(p, cfg, q_nope, q_rope, ck, cr, pos), new
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    w_uk = p["w_uk"].reshape(r, H, m.qk_nope_head_dim)
+    w_uv = p["w_uv"].reshape(r, H, m.v_head_dim)
+    B, cap_l = x.shape[0], ck.shape[1]
+    if split_k and split_v:
+        rl, el = ck.shape[2], cr.shape[2]
+        r0, e0 = ctx.tp_rank * rl, ctx.tp_rank * el
+        _write_slots(ck, pos.long(), c_kv[:, 0, r0:r0 + rl])
+        _write_slots(cr, pos.long(), k_rope[:, 0, e0:e0 + el])
+        q_abs = torch.einsum("bhe,rhe->bhr", q_nope[:, 0],
+                             w_uk[r0:r0 + rl])
+        scores = ctx.psum(
+            torch.einsum("bhr,btr->bht", q_abs.float(), ck.float())
+            + torch.einsum("bhe,bte->bht", q_rope[:, 0, :, e0:e0 + el]
+                           .float(), cr.float()), tp) * scale
+        valid = torch.arange(cap_l, device=x.device)[None, :] \
+            <= pos[:, None]
+        scores = torch.where(valid[:, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(ck.dtype)
+        lat = torch.einsum("bht,btr->bhr", probs, ck)
+        o = torch.einsum("bhr,rhe->bhe", lat, w_uv[r0:r0 + rl])
+    elif cap_k and cap_v:
+        lo = ctx.tp_rank * cap_l
+        slot = pos.long() - lo
+        here = torch.where((slot >= 0) & (slot < cap_l), slot, cap_l)
+        _write_slots(ck, here, c_kv[:, 0])
+        _write_slots(cr, here, k_rope[:, 0])
+        q_abs = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], w_uk)
+        scores = (torch.einsum("bhr,btr->bht", q_abs.float(), ck.float())
+                  + torch.einsum("bhe,bte->bht", q_rope[:, 0].float(),
+                                 cr.float())) * scale
+        valid = (lo + torch.arange(cap_l, device=x.device))[None, :] \
+            <= pos[:, None]
+        probs = _split_probs(scores, valid[:, None, :], ctx)
+        lat = ctx.psum(torch.einsum("bht,btr->bhr", probs.to(ck.dtype),
+                                    ck).float(), tp).to(ck.dtype)
+        o = torch.einsum("bhr,rhe->bhe", lat, w_uv)
+    else:
+        raise ValueError(f"MLA caches laid out {dims_k} and {dims_v}: the "
+                         f"latent and rope caches must split alike")
+    if split_k:
+        o = ctx.psum(o.float(), tp).to(o.dtype)
+    return o.reshape(B, 1, H * m.v_head_dim) @ p["wo"], new

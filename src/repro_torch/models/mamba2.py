@@ -24,7 +24,9 @@ constrains x and dt over tp): z, x, dt, the x conv, the per-head constants
 and the rows of ``out_proj`` from their tp blocks, B and C whole and cut
 to the groups of those heads, the gated RMSNorm over all of ``d_inner``
 (its mean of squares summed over tp), and the output summed over tp. The
-prefill's state comes back whole (gathered over tp).
+prefill's state comes back whole (gathered over tp). The decode over a
+mesh keeps the state as ``cache_pspecs`` lays it out: ``h`` split over tp
+on each group's heads, the conv tails whole.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
+from repro_torch.distributed.sharding import (fsdp_gather, local,
+                                              placed_like, shard_dims,
+                                              tp_part, tp_whole)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Params, RMSNorm, const, dense_init, dt,
                                        param, rmsnorm, tp_region)
@@ -313,8 +317,12 @@ def _conv_step(tail: torch.Tensor, cur: torch.Tensor, w: torch.Tensor,
 
 
 def mamba2_decode(params, cfg: ModelConfig, u: torch.Tensor,
-                  state: SSMState) -> Tuple[torch.Tensor, SSMState]:
-    """Single-token step. u: (B,1,D)."""
+                  state: SSMState, ctx=None) -> Tuple[torch.Tensor, SSMState]:
+    """Single-token step. u: (B,1,D). Over a mesh (``ctx``) the state is
+    laid out by ``cache_pspecs`` (:func:`_mamba2_decode_tp`) and u is this
+    rank's rows."""
+    if ctx is not None:
+        return _mamba2_decode_tp(params, cfg, u, state, ctx)
     s = cfg.ssm
     B = u.shape[0]
     d_inner, H, G = _dims(cfg)
@@ -340,3 +348,101 @@ def mamba2_decode(params, cfg: ModelConfig, u: torch.Tensor,
     y = y.reshape(B, 1, d_inner).to(u.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z[:, None, :]), cfg.norm_eps)
     return y @ params["out_proj"], SSMState(h, cx, cB, cC, state.length + 1)
+
+
+def _mamba2_decode_tp(params, cfg: ModelConfig, u: torch.Tensor,
+                      state: SSMState, ctx) -> Tuple[torch.Tensor, SSMState]:
+    """The step over the mesh on the state's ``cache_pspecs`` layout
+    (``DTensor`` leaves from ``shard_caches``): batch rows over the data
+    axes, the conv tails whole over tp, and ``h`` split over tp on the heads
+    of each group where they divide it. The projections' outputs are
+    gathered whole over tp (a few channels a row, not the weights), every
+    rank steps the whole conv tails, and updates its heads' state; the
+    gated RMSNorm over all of d_inner has its mean of squares summed over
+    tp, and ``out_proj``'s rows of this rank's heads give a part summed over
+    tp. With ``h`` whole over tp (or tp 1), the plain step on every rank."""
+    s = cfg.ssm
+    d_inner, H, G = _dims(cfg)
+    HG, tp, P = H // G, ctx.tp_size, s.head_dim
+    p = fsdp_gather(params, cfg, ctx)
+    split = shard_dims(state.h).get(2) == (ctx.tp_axis,) and tp > 1
+    whole = {"conv_x": (1, d_inner), "conv_bx": (0, d_inner),
+             "dt_bias": (0, H), "A_log": (0, H), "D": (0, H)}
+    if not split:
+        whole.update(in_z=(1, d_inner), in_x=(1, d_inner), in_dt=(1, H),
+                     out_proj=(0, d_inner))
+    pw = {**p, **{n: tp_whole(ctx, p[n], d, f) for n, (d, f) in
+                  whole.items()}}
+    pw["norm"] = {"scale": tp_whole(ctx, p["norm"]["scale"], 0, d_inner)}
+    st = SSMState(*(local(t) for t in state))
+    rows = shard_dims(state.conv_x).get(0)
+    st = st._replace(length=ctx.constrain(st.length, rows))
+    if not split:
+        out, new = mamba2_decode(pw, cfg, u, st)
+    else:
+        out, new = _heads_step(p, pw, cfg, u, st, ctx)
+    length = placed_like(local(state.length) + 1, state.length)
+    return out, SSMState(*(placed_like(n, o) for n, o in zip(
+        new[:4], state[:4])), length)
+
+
+def _heads_step(p, pw, cfg: ModelConfig, u: torch.Tensor, st: SSMState,
+                ctx) -> Tuple[torch.Tensor, SSMState]:
+    """:func:`_mamba2_decode_tp` where ``h`` holds this rank's HG / tp heads
+    of each group; ``pw`` has the conv and per-head weights whole, ``p``
+    the projections as the rule placed them."""
+    s = cfg.ssm
+    d_inner, H, G = _dims(cfg)
+    HG, P, B = H // G, s.head_dim, u.shape[0]
+    HGl = HG // ctx.tp_size
+    sl = slice(ctx.tp_rank * HGl, (ctx.tp_rank + 1) * HGl)
+    u0 = u[:, 0]
+    z = _whole_out(u0, p["in_z"], d_inner, ctx)
+    x, cx = _conv_step(st.conv_x, _whole_out(u0, p["in_x"], d_inner, ctx),
+                       pw["conv_x"], pw["conv_bx"])
+    Bm, cB = _conv_step(st.conv_B, u0 @ p["in_B"], p["conv_B"],
+                        p["conv_bB"])
+    Cm, cC = _conv_step(st.conv_C, u0 @ p["in_C"], p["conv_C"],
+                        p["conv_bC"])
+    dt_ = F.softplus(_whole_out(u0, p["in_dt"], H, ctx).float()
+                     + pw["dt_bias"]).reshape(B, G, HG)[:, :, sl]
+    x = x.reshape(B, G, HG, P).float()[:, :, sl]
+    Bm = Bm.reshape(B, G, s.d_state).float()
+    Cm = Cm.reshape(B, G, s.d_state).float()
+    A = -torch.exp(pw["A_log"]).reshape(G, HG)[:, sl]
+    h = st.h * torch.exp(dt_ * A)[..., None, None] \
+        + torch.einsum("bgh,bghp,bgn->bghpn", dt_, x, Bm)
+    y = torch.einsum("bghpn,bgn->bghp", h, Cm)
+    y = y + x * pw["D"].reshape(G, HG)[None, :, sl, None]
+    zl = z.reshape(B, G, HG, P)[:, :, sl].reshape(B, 1, -1)
+    y = y.reshape(B, 1, -1).to(u.dtype) * F.silu(zl)
+    # RMSNorm over all of d_inner: the mean of squares summed over tp
+    ss = torch.sum(torch.square(y), dim=-1, keepdim=True,
+                   dtype=torch.float32)
+    inv = torch.rsqrt(ctx.psum(ss, ctx.tp_axis) / d_inner
+                      + cfg.norm_eps).to(y.dtype)
+    scale = pw["norm"]["scale"].reshape(G, HG, P)[:, sl].reshape(-1)
+    y = y * inv * scale.to(y.dtype)
+    rows = _head_rows(p["out_proj"], cfg, ctx, sl)
+    out = ctx.psum(y @ rows, ctx.tp_axis)
+    return out, SSMState(h, cx, cB, cC, st.length)
+
+
+def _whole_out(u0: torch.Tensor, w: torch.Tensor, full: int,
+               ctx) -> torch.Tensor:
+    """u0 @ w with all ``full`` output columns: from a tp block of w's
+    columns, the block's product gathered over tp."""
+    y = u0 @ w
+    return y if w.shape[1] == full else ctx.gather(y, None, ctx.tp_axis)
+
+
+def _head_rows(w: torch.Tensor, cfg: ModelConfig, ctx,
+               sl: slice) -> torch.Tensor:
+    """The rows of ``out_proj`` (d_inner, D) of this rank's heads ``sl`` of
+    every group: with one group its tp block, else cut from the whole."""
+    d_inner, H, G = _dims(cfg)
+    if G == 1:
+        return tp_part(ctx, w, 0, d_inner)
+    w = tp_whole(ctx, w, 0, d_inner)
+    return w.reshape(G, H // G, cfg.ssm.head_dim, -1)[:, sl].reshape(
+        -1, w.shape[-1])

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
-from repro_torch.distributed.sharding import fsdp_gather, tp_whole
+from repro_torch.distributed.sharding import (  # noqa: F401 (shard_caches)
+    fsdp_gather, shard_caches, tp_whole)
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (Embedding, Params, RMSNorm, dense_init,
                                        dt, embed, rmsnorm)
@@ -258,13 +259,46 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches) -> Tuple[torch.Tensor, Any]:
+                caches, ctx=None) -> Tuple[torch.Tensor, Any]:
     """One decode step: tokens (B,1) -> (logits (B,V) fp32, new caches).
-    Runs under ``torch.no_grad()``: a trainable model builds no graph."""
-    x = embed(params["embed"], tokens).to(dt(cfg.compute_dtype))
-    x, caches = tf.stack_decode(params["stack"], caches, cfg, x)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits(params, cfg, x)[:, 0], caches
+    Runs under ``torch.no_grad()``: a trainable model builds no graph.
+
+    Over a mesh (``ctx``) the caches are laid out by ``shard_caches``
+    (``cache_pspecs``' placements, each rank its blocks) and stay so from
+    one step to the next; ``tokens`` and the logits are this rank's
+    rows of the batch (the caches' rows: over the data axes when the batch
+    splits over them, else every row), the logits whole over the vocab.
+    Each block gathers its weights over the fsdp axis and runs its mixer on
+    its cache's layout (`repro_torch.models.attention.decode_attention`,
+    ``mamba2_decode``, ``rwkv6_decode``, the expert-parallel MoE); the head
+    computes this rank's vocab block, gathered over tp."""
+    if ctx is None:
+        x = embed(params["embed"], tokens).to(dt(cfg.compute_dtype))
+        x, caches = tf.stack_decode(params["stack"], caches, cfg, x)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return logits(params, cfg, x)[:, 0], caches
+    x = _embed(params, cfg, tokens, ctx).to(dt(cfg.compute_dtype))
+    x, caches = tf.stack_decode(params["stack"], caches, cfg, x, ctx)
+    x = rmsnorm(fsdp_gather(params["final_norm"], cfg, ctx), x, cfg.norm_eps)
+    return _vocab_parallel_logits(params, cfg, x, ctx)[:, 0], caches
+
+
+def _vocab_parallel_logits(params, cfg: ModelConfig, x: torch.Tensor,
+                           ctx) -> torch.Tensor:
+    """:func:`logits` over the mesh from the head's tp block of vocab rows
+    (its rule's layout): this rank's block of logits, gathered over tp;
+    a head whole over tp gives them all at once."""
+    v_pad = padded_vocab(cfg.vocab)
+    if cfg.tie_embeddings:
+        table = fsdp_gather(params["embed"], cfg, ctx)["table"]
+    else:
+        table = fsdp_gather(params["head"], cfg, ctx).T
+    if table.shape[0] == v_pad:
+        return _vocab_logits(x, table, cfg.vocab)
+    out = ctx.gather(x.float() @ table.float().T,
+                     *((None,) * (x.dim() - 1)), ctx.tp_axis)
+    pad = torch.arange(v_pad, device=x.device) >= cfg.vocab
+    return out.masked_fill(pad, -1e30)
 
 
 # ---------------------------------------------------------------------------

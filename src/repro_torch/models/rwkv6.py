@@ -31,7 +31,9 @@ r, k and the decay come from the column blocks of their whole weights, v
 and g from their tp blocks, the RMSNorm ``ln_x`` over all of D has its mean
 of squares summed over tp, and ``wo``'s row block gives a part summed over
 tp. The channel-mix runs its hidden block and sums it over tp. The
-prefill's state comes back whole (gathered over tp).
+prefill's state comes back whole (gathered over tp). The decode over a
+mesh splits the state on the value dim, as the reference does
+(:func:`_rwkv6_decode_tp`).
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
+from repro_torch.distributed.sharding import (fsdp_gather, local,
+                                              placed_like, shard_dims,
+                                              tp_part, tp_whole)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Params, RMSNorm, const, dense_init, dt,
                                        param, rmsnorm, tp_region)
@@ -296,11 +300,68 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> RWKVState:
 
 
 def rwkv6_decode(params, cfg: ModelConfig, x: torch.Tensor,
-                 state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
+                 state: RWKVState, ctx=None) -> Tuple[torch.Tensor, RWKVState]:
     """Single-token time-mix on the carried state. x (B,1,D), the normed
     block input. Returns (time-mix out, the state with s, x_tm and length
-    advanced); the caller applies channel-mix with ``x_cm``."""
+    advanced); the caller applies channel-mix with ``x_cm``. Over a mesh
+    (``ctx``) the state is laid out by ``cache_pspecs``
+    (:func:`_rwkv6_decode_tp`) and x is this rank's rows."""
+    if ctx is not None:
+        return _rwkv6_decode_tp(params, cfg, x, state, ctx)
     out, s_final, x_last = rwkv6_time_mix(params, cfg, x, state.x_tm,
                                           s0=state.s, use_chunked=False)
     return out, state._replace(s=s_final, x_tm=x_last,
                                length=state.length + 1)
+
+
+def _rwkv6_decode_tp(params, cfg: ModelConfig, x: torch.Tensor,
+                     state: RWKVState, ctx) -> Tuple[torch.Tensor, RWKVState]:
+    """The time-mix step over the mesh on the state's ``cache_pspecs``
+    layout (``DTensor`` leaves from ``shard_caches``): batch rows over the
+    data axes, the shifted inputs whole over tp, and ``s`` (B,H,Nk,Nv)
+    split over tp on the VALUE dim, as the reference constrains it (the
+    recurrence is independent across value channels). Every rank computes
+    r, k and the decay whole, v whole from its tp block's product gathered
+    over tp, and steps the state's value channels it holds; their outputs
+    are gathered over tp, so ``ln_x`` normalises each row over all of D,
+    and ``g`` and ``wo``'s row block of this rank give a part summed over
+    tp. With ``s`` whole over tp (or tp 1), the plain step on every rank."""
+    N, D = cfg.rwkv.head_dim, cfg.d_model
+    H, tp = D // N, ctx.tp_size
+    p = fsdp_gather(params, cfg, ctx)
+    split = shard_dims(state.s).get(3) == (ctx.tp_axis,) and tp > 1
+    s0, x_prev = local(state.s), local(state.x_tm)
+    if not split:
+        pw = {**p, **{n: tp_whole(ctx, p[n], d, D) for n, d in
+                      (("wv", 1), ("wg", 1), ("wo", 0))}}
+        out, s_new, x_last = rwkv6_time_mix(pw, cfg, x, x_prev, s0=s0,
+                                            use_chunked=False)
+    else:
+        B = x.shape[0]
+        Nl = s0.shape[-1]
+        e0 = ctx.tp_rank * Nl
+        xr, xk, xv, xw, xg = _time_mix_inputs(p, x, x_prev[:, None, :])
+        r = (xr @ p["wr"]).reshape(B, 1, H, N)
+        k = (xk @ p["wk"]).reshape(B, 1, H, N)
+        v = xv @ p["wv"]
+        if v.shape[-1] != D:
+            v = ctx.gather(v, None, None, ctx.tp_axis)
+        v = v.reshape(B, 1, H, N)[..., e0:e0 + Nl]
+        dlow = torch.tanh(xw @ p["decay_a"])
+        dlog = p["w0"] + (dlow @ p["decay_b"]).float()
+        w = torch.exp(-torch.exp(dlog)).reshape(B, 1, H, N)
+        o, s_new = wkv_naive(r, k, v, w, p["u"].contiguous(), s0)
+        o = ctx.gather(o, None, None, None, ctx.tp_axis)
+        y = rmsnorm(p["ln_x"], o.reshape(B, 1, D), cfg.norm_eps)
+        if D % tp:
+            g = F.silu(xg @ tp_whole(ctx, p["wg"], 1, D))
+            out = (y * g) @ tp_whole(ctx, p["wo"], 0, D)
+        else:
+            g = F.silu(xg @ tp_part(ctx, p["wg"], 1, D))
+            y = ctx.constrain(y, None, None, ctx.tp_axis)
+            out = ctx.psum((y * g) @ tp_part(ctx, p["wo"], 0, D),
+                           ctx.tp_axis)
+        x_last = x[:, -1, :]
+    return out, state._replace(
+        s=placed_like(s_new, state.s), x_tm=placed_like(x_last, state.x_tm),
+        length=placed_like(local(state.length) + 1, state.length))

@@ -32,14 +32,16 @@ take and give that layout (`repro_torch.models.layers.tp_region`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import fsdp_gather, tp_part, tp_whole
+from repro_torch.distributed.sharding import (fsdp_gather, local,
+                                              placed_like, tp_part,
+                                              tp_whole)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
@@ -148,32 +150,38 @@ def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
-                 cache: Any) -> Tuple[torch.Tensor, Any]:
+                 cache: Any, ctx=None) -> Tuple[torch.Tensor, Any]:
     """One-token decode for one block. cache: KVCache | SSMState |
-    RWKVState."""
+    RWKVState. Over a mesh (``ctx``) the block's weights are gathered over
+    the fsdp axis first and the cache is this rank's ``DTensor`` blocks
+    (`repro_torch.distributed.sharding.shard_caches`)."""
+    params = fsdp_gather(params, cfg, ctx)
     if cfg.block_kind == "mamba2":
         h = rmsnorm(params["norm"], x, cfg.norm_eps)
-        out, cache = m2.mamba2_decode(params["mixer"], cfg, h, cache)
+        out, cache = m2.mamba2_decode(params["mixer"], cfg, h, cache, ctx)
         return x + out, cache
     if cfg.block_kind == "rwkv6":
         h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-        tm, cache = rw.rwkv6_decode(params["mixer"], cfg, h, cache)
+        tm, cache = rw.rwkv6_decode(params["mixer"], cfg, h, cache, ctx)
         x = x + tm
         h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-        cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, cache.x_cm)
-        return x + cm, cache._replace(x_cm=x_cm)
+        cm, x_cm = rw.rwkv6_channel_mix(params["mixer"], h, local(cache.x_cm),
+                                        ctx, cfg)
+        return x + cm, cache._replace(x_cm=placed_like(x_cm, cache.x_cm))
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache)
+    out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache,
+                                           ctx)
     x = x + out
     return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
-                    True)[0], cache
+                    True, ctx)[0], cache
 
 
 def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, capacity: int, ctx=None
                   ) -> Tuple[torch.Tensor, Any]:
     """Forward one block and return its decode cache (over a mesh, the
-    cache of this rank's rows, whole over tp)."""
+    cache of this rank's rows, whole over tp but for the kv heads that
+    the decode's layout splits over it)."""
     params = fsdp_gather(params, cfg, ctx)       # explicit ZeRO-3 prefetch
     if cfg.block_kind == "mamba2":
         h = rmsnorm(params["norm"], x, cfg.norm_eps)
@@ -268,11 +276,13 @@ def shared_attn_forward(shared, lora, cfg: ModelConfig, x: torch.Tensor,
 
 
 def shared_attn_decode(shared, lora, cfg: ModelConfig, x: torch.Tensor,
-                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
-    ap = _lora_adjusted_attn_params(shared["attn"], lora)
+                       cache: KVCache, ctx=None
+                       ) -> Tuple[torch.Tensor, KVCache]:
+    shared, lora = fsdp_gather((shared, lora), cfg, ctx)
+    ap = _lora_adjusted_attn_params(shared["attn"], lora, cfg, ctx)
     h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
-    out, cache = attn_mod.decode_attention(ap, cfg, h, cache)
-    return _shared_mlp(shared, cfg, x + out), cache
+    out, cache = attn_mod.decode_attention(ap, cfg, h, cache, ctx)
+    return _shared_mlp(shared, cfg, x + out, ctx), cache
 
 
 def shared_attn_prefill(shared, lora, cfg: ModelConfig, x: torch.Tensor,
@@ -429,59 +439,68 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
     return caches
 
 
-def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor
-                 ) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
-    """One-token decode through all layers. Returns (x, new caches)."""
+def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor,
+                 ctx=None) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
+    """One-token decode through all layers. Returns (x, new caches); ``ctx``
+    runs every block over the mesh on caches from ``shard_caches``."""
     if cfg.block_pattern == "zamba_hybrid":
         ge = cfg.attn_every
         new = {"groups": [], "shared_kv": []}
         for s, (group, lora) in enumerate(zip(_site_groups(params, cfg),
                                               params["loras"])):
             for j, block in enumerate(group):
-                x, c = block_decode(block, cfg, x, caches["groups"][s * ge + j])
+                x, c = block_decode(block, cfg, x,
+                                    caches["groups"][s * ge + j], ctx)
                 new["groups"].append(c)
             x, kv = shared_attn_decode(params["shared_attn"], lora, cfg, x,
-                                       caches["shared_kv"][s])
+                                       caches["shared_kv"][s], ctx)
             new["shared_kv"].append(kv)
         if "tail" in params:
             new["tail"] = []
             for block, c in zip(params["tail"], caches["tail"]):
-                x, c = block_decode(block, cfg, x, c)
+                x, c = block_decode(block, cfg, x, c, ctx)
                 new["tail"].append(c)
         return x, new
     new = {}
     for kind, blocks in _uniform(params):
         new[kind] = []
         for block, c in zip(blocks, caches[kind]):
-            x, c = block_decode(block, cfg, x, c)
+            x, c = block_decode(block, cfg, x, c, ctx)
             new[kind].append(c)
     return x, new
 
 
 def stack_prefill(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, capacity: int, ctx=None
+                  positions: torch.Tensor, capacity: int, ctx=None,
+                  place: Optional[Callable[[str, int, Any], Any]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
     """Forward all layers, returning per-layer decode caches (the structure
-    of :func:`init_caches`); ``ctx`` runs every block over the mesh."""
+    of :func:`init_caches`); ``ctx`` runs every block over the mesh, and
+    ``place(kind, i, cache)`` lays each layer's cache out as it comes
+    (the sharded prefill's, so no layer's is held whole to the end)."""
+    caches: Dict[str, List[Any]] = {}
+
+    def keep(kind: str, c: Any) -> None:
+        layers = caches.setdefault(kind, [])
+        layers.append(c if place is None else place(kind, len(layers), c))
     if cfg.block_pattern == "zamba_hybrid":
         caches = {"groups": [], "shared_kv": []}
         for group, lora in zip(_site_groups(params, cfg), params["loras"]):
             for block in group:
                 x, c = block_prefill(block, cfg, x, positions, capacity, ctx)
-                caches["groups"].append(c)
+                keep("groups", c)
             x, kv = shared_attn_prefill(params["shared_attn"], lora, cfg, x,
                                         positions, capacity, ctx)
-            caches["shared_kv"].append(kv)
+            keep("shared_kv", kv)
         if "tail" in params:
             caches["tail"] = []
             for block in params["tail"]:
                 x, c = block_prefill(block, cfg, x, positions, capacity, ctx)
-                caches["tail"].append(c)
+                keep("tail", c)
         return x, caches
-    caches = {}
     for kind, blocks in _uniform(params):
         caches[kind] = []
         for block in blocks:
             x, c = block_prefill(block, cfg, x, positions, capacity, ctx)
-            caches[kind].append(c)
+            keep(kind, c)
     return x, caches

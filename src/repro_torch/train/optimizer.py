@@ -30,22 +30,10 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.distributed.sharding import local as _local
+from repro_torch.distributed.sharding import placed_like
+
 Grads = Mapping[str, Optional[torch.Tensor]]
-
-
-def _local(t: torch.Tensor) -> torch.Tensor:
-    """A ``DTensor``'s local block (its storage), or the tensor itself."""
-    return t.to_local() if isinstance(t, DTensor) else t
-
-
-def _like(t: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
-    """``local`` as a block of ``t``'s placements when ``t`` is a
-    ``DTensor``."""
-    if not isinstance(t, DTensor):
-        return local
-    return DTensor.from_local(local, t.device_mesh, t.placements,
-                              run_check=False, shape=t.shape,
-                              stride=t.stride())
 
 
 def _counts_here(t: torch.Tensor) -> bool:
@@ -129,7 +117,7 @@ def clip_by_global_norm(grads: Grads, max_norm: float
     norm). Float32 grads are scaled in place; ``None`` stays ``None``."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {n: None if g is None else _like(g, _local(g).float().mul_(scale))
+    return {n: None if g is None else placed_like(_local(g).float().mul_(scale), g)
             for n, g in grads.items()}, norm
 
 

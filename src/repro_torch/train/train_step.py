@@ -10,13 +10,14 @@ Over a mesh (``ctx``, see `repro_torch.distributed.sharding`) the model's
 parameters are ``DTensor``s (:func:`init_train_state` lays them out) and
 the step takes the whole batch on every rank: each microbatch (consecutive
 rows, as the reference reshapes the batch) is cut to this rank's block of
-rows over the data-parallel axes, as the reference shards it. Every rank
-back-propagates its loss (the whole batch's, the same on every rank)
-divided by the ranks the grads are summed over; the collectives inside the
-model reduce-scatter the fsdp-gathered weights' grads, and a grad
-replicated over one of those axes is summed over it after backward. So the
-grads, the clip's norm and the AdamW update are the whole model's, each
-rank holding its blocks.
+rows over the data-parallel axes its rows divide
+(`repro_torch.distributed.sharding.row_axes`), as the reference shards
+it. Every rank back-propagates its loss (the whole batch's, the same on
+every rank) divided by the ranks the grads are summed over; the
+collectives inside the model reduce-scatter the fsdp-gathered weights'
+grads, and a grad replicated over one of those axes is summed over it
+after backward. So the grads, the clip's norm and the AdamW update are
+the whole model's, each rank holding its blocks.
 
 With ``compress_dcn`` and a "pod" axis, this is the reference's pod
 branch: per-pod grads (the batch cut over the pods first, the grads summed
@@ -37,10 +38,11 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import (ShardCtx, _ref_path,
-                                              shard_model)
+                                              row_axes, shard_model)
+from repro_torch.distributed.sharding import local as _local
 from repro_torch.models import model as M
 from repro_torch.train.compression import dequantize_int8
-from repro_torch.train.optimizer import (OptConfig, _local, adamw_update,
+from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                          clip_by_global_norm, init_opt_state)
 
 Batch = Dict[str, torch.Tensor]
@@ -53,6 +55,19 @@ def _split_microbatches(batch: Batch, n_mb: int):
     return [{k: p[i] for k, p in parts.items()} for i in range(n_mb)]
 
 
+#: how the sharded step runs its microbatches: ``loop(microbatches, body)``
+#: calls ``body`` on each (every iteration the same ops on rows of the same
+#: shape); the dry run passes one that traces the first for all of them
+Loop = Callable[[List[Batch], Callable[[Batch], None]], None]
+
+
+def run_all(microbatches: List[Batch], body: Callable[[Batch], None]
+            ) -> None:
+    """The default :data:`Loop`: ``body`` on every microbatch in order."""
+    for mb in microbatches:
+        body(mb)
+
+
 def _take_grads(params: nn.Module):
     """(name, grad or None) of every parameter, each ``.grad`` cleared."""
     for name, p in params.named_parameters():
@@ -61,7 +76,8 @@ def _take_grads(params: nn.Module):
 
 
 def grads_and_loss(params: nn.Module, cfg: ModelConfig, batch: Batch,
-                   shape: ShapeConfig, ctx: Optional[ShardCtx] = None
+                   shape: ShapeConfig, ctx: Optional[ShardCtx] = None,
+                   loop: Optional[Loop] = None
                    ) -> Tuple[Dict[str, Optional[torch.Tensor]],
                               torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean float32 grads over the (possibly microbatched) batch, keyed by
@@ -70,10 +86,11 @@ def grads_and_loss(params: nn.Module, cfg: ModelConfig, batch: Batch,
     reference. A parameter the loss does not reach has a grad of ``None``
     with one microbatch and zeros with several (the optimizer takes
     ``None`` as zeros). Over a mesh the grads are ``DTensor``s with their
-    parameters' placements."""
+    parameters' placements, and ``loop`` (:data:`Loop`) runs their
+    microbatches."""
     n_mb = shape.num_microbatches
     if ctx is not None:
-        return _sharded_grads_and_loss(params, cfg, batch, shape, ctx)
+        return _sharded_grads_and_loss(params, cfg, batch, shape, ctx, loop)
     if n_mb <= 1:
         loss, metrics = M.loss_fn(params, cfg, batch, remat=shape.remat)
         loss.backward()
@@ -109,7 +126,7 @@ def _placed(p: torch.Tensor, ctx: ShardCtx) -> List:
 
 def _sharded_grads_and_loss(params: nn.Module, cfg: ModelConfig,
                             batch: Batch, shape: ShapeConfig,
-                            ctx: ShardCtx):
+                            ctx: ShardCtx, loop: Optional[Loop] = None):
     axes = _grad_axes(ctx)
     world = ctx.size(axes)
     n_mb = max(1, shape.num_microbatches)
@@ -118,9 +135,14 @@ def _sharded_grads_and_loss(params: nn.Module, cfg: ModelConfig,
         n: None if n_mb == 1 else
         torch.zeros_like(_local(p), dtype=torch.float32)
         for n, p in named.items()}
-    loss_acc = None
-    for mb in _split_microbatches(batch, n_mb):
-        mb = {k: ctx.constrain(v, ctx.dp_axes) for k, v in mb.items()}
+    out: Dict[str, Any] = {}
+    if n_mb > 1:
+        out["loss"] = torch.zeros((), device=next(iter(acc.values())).device)
+
+    def body(mb: Batch) -> None:
+        rows = row_axes(ctx, next(iter(mb.values())).shape[0],
+                        partial=True)
+        mb = {k: ctx.constrain(v, rows) for k, v in mb.items()}
         loss, metrics = M.loss_fn(params, cfg, mb, remat=shape.remat,
                                   ctx=ctx)
         (loss / world if world > 1 else loss).backward()
@@ -133,13 +155,18 @@ def _sharded_grads_and_loss(params: nn.Module, cfg: ModelConfig,
             else:
                 acc[n].add_(g / n_mb)
         loss = loss.detach()
-        loss_acc = loss if n_mb == 1 else (
-            loss / n_mb if loss_acc is None else loss_acc + loss / n_mb)
+        if n_mb == 1:
+            out["loss"], out["metrics"] = loss, metrics
+        else:
+            out["loss"] = out["loss"] + loss / n_mb
+    (loop or run_all)(_split_microbatches(batch, n_mb), body)
     _sum_replicated(acc, named, ctx, axes)
     grads = {n: None if g is None else _as_placed(g, named[n], ctx)
              for n, g in acc.items()}
+    loss_acc = out["loss"]
     if n_mb == 1:
-        return grads, loss_acc, {k: v.detach() for k, v in metrics.items()}
+        return grads, loss_acc, {k: v.detach()
+                                 for k, v in out["metrics"].items()}
     return grads, loss_acc, {"ce": loss_acc,
                              "aux": torch.zeros_like(loss_acc)}
 
@@ -182,7 +209,8 @@ def _as_placed(local: torch.Tensor, p: torch.Tensor,
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt: OptConfig,
                     ctx: Optional[ShardCtx] = None,
-                    compress_dcn: bool = False
+                    compress_dcn: bool = False,
+                    loop: Optional[Loop] = None
                     ) -> Callable[..., Tuple[nn.Module, Any,
                                              Dict[str, torch.Tensor]]]:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -191,10 +219,12 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt: OptConfig,
     state are updated in place. With ``ctx`` the step runs over its mesh
     (every rank passes the whole batch); with ``compress_dcn`` and a "pod"
     axis it is the pod branch, whose optimizer state carries
-    ``dcn_error`` (:func:`init_train_state` with ``compress_dcn``)."""
+    ``dcn_error`` (:func:`init_train_state` with ``compress_dcn``); over a
+    mesh ``loop`` (:data:`Loop`) runs the microbatches."""
     if not compress_dcn or ctx is None or "pod" not in ctx.axis_names:
         def train_step(params, opt_state, batch):
-            grads, loss, _ = grads_and_loss(params, cfg, batch, shape, ctx)
+            grads, loss, _ = grads_and_loss(params, cfg, batch, shape, ctx,
+                                            loop)
             grads, gnorm = clip_by_global_norm(grads, opt.grad_clip)
             params, opt_state, om = adamw_update(params, grads, opt_state,
                                                  opt)
@@ -208,7 +238,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt: OptConfig,
     def train_step(params, opt_state, batch):
         # per-pod grads (summed over data and model inside)
         pod_batch = {k: ctx.constrain(v, "pod") for k, v in batch.items()}
-        grads, loss, _ = grads_and_loss(params, cfg, pod_batch, shape, inner)
+        grads, loss, _ = grads_and_loss(params, cfg, pod_batch, shape, inner,
+                                        loop)
         named = dict(params.named_parameters())
         local = {n: torch.zeros_like(_local(named[n]), dtype=torch.float32)
                  if g is None else _local(g) for n, g in grads.items()}

@@ -41,7 +41,8 @@ all at 240 s. Compared as max |diff| over max |reference| unless said:
   losses within 1e-5, the grad norms within 1e-4, the parameters within
   1e-4 normwise;
 * (f) the sharded prefill of qwen3-32b (kv heads repeated over tp) and
-  zamba2-7b against the unsharded one: logits and every cache within 1e-5;
+  zamba2-7b against the unsharded one: logits and every cache within 1e-5,
+  each rank holding only its blocks of the caches;
 * (g) the launcher over 4 processes, ``--mesh 2x2`` (12 steps with a node
   failure before step 11, restored from the step-10 checkpoint that rank 0
   alone wrote, its blocks gathered to rank 0 alone; every loss within 1e-5
@@ -153,6 +154,13 @@ def test_sharded_microbatches_match_one_process(port_runs):
     _check_step(port_runs["steps"], "qwen3_32b_mb2")
 
 
+def test_microbatch_rows_that_do_not_split_match_one_process(port_runs):
+    """4 microbatches of one row each: a row does not split over the data
+    axis's 2 ranks, so both hold it (the reference's ``input_pspecs``
+    rule), and the loss and grads are still the batch's."""
+    _check_step(port_runs["steps"], "qwen3_32b_mb4")
+
+
 @pytest.mark.parametrize("arch", ["qwen3_32b", "qwen3_moe_30b_a3b"])
 def test_sequence_parallel_step_matches_one_process(port_runs, arch):
     res = port_runs["steps"]
@@ -197,6 +205,22 @@ def test_sharded_prefill_matches_unsharded(port_runs, arch):
     for k in r:
         assert s[k].shape == r[k].shape, k
         assert rel(s[k], r[k]) < 1e-5 or not r[k].any() and not s[k].any(), k
+
+
+@pytest.mark.parametrize("arch", ["qwen3_32b", "zamba2_7b"])
+def test_sharded_prefill_hands_back_blocks(port_runs, arch):
+    """The sharded prefill gathers no cache: each rank holds its block of
+    every leaf in the decode's layout (``cache_pspecs``), the whole over
+    the ranks that layout splits it over; the kv caches split over both
+    axes (2 rows over data, the kv heads over model)."""
+    res = port_runs["prefill"]
+    blocks = {k: v for k, v in res.items()
+              if k.startswith(f"{arch}/blocks/")}
+    assert blocks
+    for k, (local, whole, ranks) in blocks.items():
+        assert local * ranks == whole, k
+    kv = [v for k, v in blocks.items() if k.endswith(("/k", "/v"))]
+    assert kv and all(ranks == 4 for _, _, ranks in kv)
 
 
 # ---------------------------------------------------------------------------

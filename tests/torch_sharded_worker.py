@@ -1,20 +1,25 @@
-"""One rank of the port's sharded train step, expert-parallel MoE and
-sharded prefill on a gloo group, for tests/test_torch_sharded.py.
+"""One rank of the port's sharded train step, expert-parallel MoE,
+sharded prefill and sharded decode on a gloo group, for
+tests/test_torch_sharded.py and tests/test_torch_sharded_decode.py.
 
     python tests/torch_sharded_worker.py RANK WORLD RENDEZVOUS OUT_DIR CASES
 
 ``CASES`` is a comma-separated list of ``steps`` (one train step of each
 smoke config on a (2, 2) data x model mesh, and qwen3-32b and qwen3-moe
-with sequence parallelism, and qwen3-32b in 2 microbatches, each beside
-the one-process step from the same weights), ``pod`` (the compressed-DCN
+with sequence parallelism, and qwen3-32b in 2 and 4 microbatches, each
+beside the one-process step from the same weights), ``pod`` (the compressed-DCN
 pod branch on (4, 1, 1) and (2, 1, 2) beside its one-process arithmetic),
-``prefill`` (the sharded prefill beside the unsharded one) and ``jax``
+``prefill`` (the sharded prefill beside the unsharded one), ``jax``
 (the steps, the MoE layer and the pod branch on weights and inputs the
-reference package wrote to ``OUT_DIR/jax_in.npz``). Rank 0 writes each
-case's results to ``OUT_DIR/port_<case>.npz``. Imports neither JAX nor
-the reference package.
+reference package wrote to ``OUT_DIR/jax_in.npz``) and ``decode`` (the
+sharded decode and a sharded ``ServeSession`` on (2, 2) and (2, 1, 2)
+beside the one-process ones, on the reference's weights and tokens in
+``OUT_DIR/jax_in.npz``). Rank 0 writes each case's results to
+``OUT_DIR/port_<case>.npz``. Imports neither JAX nor the reference
+package.
 """
 import contextlib
+import dataclasses
 import os
 import re
 import sys
@@ -37,7 +42,9 @@ from repro_torch.distributed.sharding import (make_ctx,  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
-from repro_torch.serve.engine import prefill_step  # noqa: E402
+from repro_torch.serve.engine import (Request,  # noqa: E402
+                                      ServeSession, decode_step,
+                                      prefill_step)
 from repro_torch.train import optimizer as O  # noqa: E402
 from repro_torch.train import train_step as T  # noqa: E402
 
@@ -100,11 +107,12 @@ def _grads(params, cfg, batch, shape, ctx, prefix, out):
 
 
 def case_steps(out):
-    """(a) every smoke config on (2, 2), and qwen3-32b in 2 microbatches;
-    (c) qwen3-32b and qwen3-moe with SP."""
+    """(a) every smoke config on (2, 2), and qwen3-32b in 2 microbatches
+    and in 4 (one row each, repeated over the data axis); (c) qwen3-32b and
+    qwen3-moe with SP."""
     B, S = 4, 24
     runs = ([(a, False, 1) for a in ARCHS] + [(a, True, 1) for a in SP_ARCHS]
-            + [("qwen3_32b", False, 2)])
+            + [("qwen3_32b", False, 2), ("qwen3_32b", False, 4)])
     for arch, sp, n_mb in runs:
         cfg = registry.get_smoke_config(arch)
         shape = ShapeConfig("s", "train", S, B, n_mb, True)
@@ -209,6 +217,103 @@ def case_prefill(out):
                 for f, t, u in zip(r._fields, c, r):
                     out[f"{arch}/sharded/cache/{kind}/{i}/{f}"] = _full(t)
                     out[f"{arch}/ref/cache/{kind}/{i}/{f}"] = _full(u)
+                    # this rank's block as the prefill hands it back, and
+                    # the ranks the decode's layout splits the leaf over
+                    splits = [n for n, pl in zip(
+                        ctx.mesh.shape, t.placements) if pl.is_shard()]
+                    out[f"{arch}/blocks/{kind}/{i}/{f}"] = np.array(
+                        [t.to_local().numel(), u.numel(),
+                         int(np.prod(splits))])
+
+
+DECODE_ARCHS = ["qwen3_32b", "internvl2_2b", "h2o_danube3_4b",
+                "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "zamba2_7b",
+                "rwkv6_3b"]
+#: (case, smoke arch, batch, prompt tokens, capacity, layers or None)
+DECODE_CASES = [(a, a, 4, 14, 32, None) for a in DECODE_ARCHS] + [
+    ("internvl2_2b_long", "internvl2_2b", 2, 14, 131072, 1)]
+DECODE_MESHES = {"2x2": ((2, 2), ("data", "model")),
+                 "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+DECODE_STEPS = 4
+
+
+def decode_config(arch, layers):
+    cfg = registry.get_smoke_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _decode_run(cfg, model, caches, steps, ctx, key, out):
+    """The decode steps from ``caches`` (a prefill's, whole): over the mesh
+    on the caches ``shard_caches`` lays out when ``ctx``, else in one
+    process; each step's logits, the last caches (whole) and, over the
+    mesh, the shape of each cache block this rank holds into ``out``."""
+    caches = {k: [type(c)(*(t.clone() for t in c)) for c in layers]
+              for k, layers in caches.items()}
+    if ctx is not None:
+        caches = T.M.shard_caches(caches, cfg, ctx)
+    for i, tok in enumerate(steps):
+        logits, caches = decode_step(model, cfg, torch.from_numpy(tok),
+                                     caches, ctx)
+        out[f"{key}/logits{i}"] = _full(logits)
+    for kind, layers in caches.items():
+        for i, c in enumerate(layers):
+            for f, t in zip(c._fields, c):
+                out[f"{key}/cache/{kind}/{i}/{f}"] = _full(t)
+                if ctx is not None:
+                    out[f"{key}/block/{kind}/{i}/{f}"] = np.array(
+                        t.to_local().shape)
+
+
+def case_decode(out, in_dir):
+    """(d) the sharded decode of every smoke config with a decode step on
+    (2, 2) and (2, 1, 2) beside the one-process decode, from the
+    reference's weights, prompts and step tokens in ``OUT_DIR/jax_in.npz``
+    and the one-process prefill; internvl2-2b (one layer) also at capacity
+    131072, where the rule splits the cache's positions over tp
+    (split-KV)."""
+    data = dict(np.load(os.path.join(in_dir, "jax_in.npz")))
+    for case, arch, B, S, cap, layers in DECODE_CASES:
+        cfg = decode_config(arch, layers)
+
+        def model():
+            return params_from_jax(cfg, _unflatten(data, case + "/params/"),
+                                   device="cpu")
+        inputs = {k[len(case) + 4:]: torch.from_numpy(v)
+                  for k, v in data.items() if k.startswith(case + "/in/")}
+        steps = data[case + "/steps"].astype(np.int64)
+        ref = model()
+        _, caches = prefill_step(ref, cfg, inputs, cap)
+        if dist.get_rank() == 0:
+            _decode_run(cfg, ref, caches, steps, None, f"{case}/ref", out)
+        if dist.get_rank() == 0 and case in SESSION_CASES:
+            out[f"{case}/ref/session"] = _session(cfg, ref, None)
+        for tag, (shape, axes) in DECODE_MESHES.items():
+            ctx = _ctx(shape, axes)
+            sharded = shard_model(model(), cfg, ctx)
+            _decode_run(cfg, sharded, caches, steps, ctx, f"{case}/{tag}",
+                        out)
+            if case in SESSION_CASES:
+                out[f"{case}/{tag}/session"] = _session(cfg, sharded, ctx)
+
+
+SESSION_CASES = ("qwen3_32b", "zamba2_7b")
+
+
+def _session(cfg, model, ctx):
+    """The greedy tokens of 4 requests (prompts of 11, 5, 17 and 8 tokens,
+    numpy seed 3, 5 new tokens each) through a 2-slot ``ServeSession``:
+    slots are freed and reused, so every request's caches are spliced into
+    a slot that held another's; with ``ctx`` the session prefills and
+    decodes over the mesh on its sharded caches."""
+    rng = np.random.default_rng(3)
+    sess = ServeSession(model, cfg, batch_slots=2, capacity=32,
+                        device="cpu", ctx=ctx)
+    for i, n in enumerate((11, 5, 17, 8)):
+        sess.submit(Request(i, rng.integers(0, cfg.vocab, n), 5))
+    done = sess.run_to_completion(max_steps=100)
+    return np.array([r.generated for r in sorted(
+        done, key=lambda r: r.request_id)])
 
 
 def _unflatten(flat, prefix):
@@ -288,6 +393,8 @@ def main() -> None:
             out = {}
             if case == "jax":
                 case_jax(out, out_dir)
+            elif case == "decode":
+                case_decode(out, out_dir)
             else:
                 {"steps": case_steps, "pod": case_pod,
                  "prefill": case_prefill}[case](out)

@@ -3,14 +3,20 @@
 The simulator's accounting discipline (`repro_torch.core.fabric`) produces
 end-of-run aggregates — ``tier_bytes``, ``busy_time``, ``StagingReport``
 totals — which say *how much* but never *when*. This module adds the
-instrument on the discrete-event timeline: a :class:`Tracer` records
-hierarchical spans stamped in SIMULATED time (never wall clock), a
+instrument on a timeline: a :class:`Tracer` records hierarchical spans, a
 :class:`MetricsRegistry` collects counters, gauges and fixed-bucket
 histograms, and two exporters turn a recording into something a human
 can read — Chrome trace-event JSON (:func:`to_chrome_trace`, loadable in
 Perfetto / ``chrome://tracing``) and a plain-text flight-recorder report
 (:func:`flight_recorder`) with a critical-path breakdown of where each
 stage's simulated seconds went.
+
+The recorder is clock agnostic: callers pass the stamps. The simulator
+stamps SIMULATED seconds (its fabric's tracer, ``fabric.attach_tracer``);
+the HEDM hot path (`repro_torch.hedm.pipeline`'s ``reduce_frames`` and
+``fit_grid``) stamps ``time.perf_counter()`` seconds on track ``host``
+into the tracer that :func:`recording` makes current, and puts the
+device seconds of its CUDA-event-timed phases on the spans as ``device_s``.
 
 The contract carried over from the fault and QoS layers: telemetry is
 STRICTLY additive. Every instrumentation site in the fabric guards on
@@ -25,6 +31,7 @@ Span taxonomy, metrics catalog and exporter how-tos are documented in
 from __future__ import annotations
 
 import bisect
+import contextvars
 import json
 import math
 from contextlib import contextmanager
@@ -198,7 +205,7 @@ class MetricsRegistry:
 
 @dataclass
 class Span:
-    """One closed interval of simulated time on a named track.
+    """One closed interval of the recording's clock on a named track.
 
     ``parent`` is the enclosing span's ``span_id`` (None for roots);
     ``track`` is the coarse UI row family (``engine``, ``fs``, ``net``,
@@ -364,6 +371,27 @@ NULL_TRACER = NullTracer()
 
 TracerLike = Union[Tracer, NullTracer]
 
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_current_tracer", default=NULL_TRACER)
+
+
+def current() -> TracerLike:
+    """The tracer that :func:`recording` made current in this context
+    (thread or task), else :data:`NULL_TRACER`. Hot-path code looks it up
+    once a call and guards every site on its ``enabled``."""
+    return _CURRENT.get()
+
+
+@contextmanager
+def recording(tracer: TracerLike) -> Iterator[TracerLike]:
+    """Make ``tracer`` current for the ``with`` block (and restore the
+    previous one after it): the instrumented hot path records into it."""
+    token = _CURRENT.set(tracer)
+    try:
+        yield tracer
+    finally:
+        _CURRENT.reset(token)
+
 
 # -- Chrome trace-event export ---------------------------------------------
 
@@ -393,14 +421,16 @@ def to_chrome_trace(tracer: Tracer) -> Dict[str, Any]:
     (https://ui.perfetto.dev) and ``chrome://tracing``:
 
       * one PROCESS per track (``engine``, ``fs``, ``net``,
-        ``net/<tier>``, ``svc``, ``qos``, ``stream``) with a
-        ``process_name`` metadata event;
+        ``net/<tier>``, ``svc``, ``qos``, ``stream``; ``host`` for the
+        HEDM hot path) with a ``process_name`` metadata event;
       * root spans laid out on greedy non-overlapping THREAD lanes,
         children on their root's lane — Perfetto then renders the
         parent/child nesting by interval containment;
       * spans as ``ph:"X"`` complete events (``ts``/``dur`` in
-        microseconds of simulated time), instants as ``ph:"i"``, gauge
-        series as ``ph:"C"`` counter tracks under a ``metrics`` process.
+        microseconds of the clock whoever stamped the spans used:
+        simulated seconds for the simulator's, ``time.perf_counter()``
+        for the HEDM hot path's), instants as ``ph:"i"``, gauge series as
+        ``ph:"C"`` counter tracks under a ``metrics`` process.
     """
     tracks: List[str] = sorted({s.track for s in tracer.spans})
     pid_of = {track: i + 1 for i, track in enumerate(tracks)}
@@ -446,7 +476,7 @@ def to_chrome_trace(tracer: Tracer) -> Dict[str, Any]:
                                "tid": 0, "ts": t * 1e6, "args": {name: v}})
     return {"traceEvents": events,
             "displayTimeUnit": "ms",
-            "otherData": {"clock": "simulated", "spans": len(tracer.spans)}}
+            "otherData": {"spans": len(tracer.spans)}}
 
 
 def write_chrome_trace(tracer: Tracer, path: str) -> str:

@@ -42,7 +42,9 @@ def main(device: DeviceLike = "cuda", n_frames: int = 736, size: int = 2048,
     share of points within 0.05 of the truth), ``staged_s``/``naive_s``
     (simulated staging seconds), ``makespan_s`` (simulated), and
     ``phases``: wall seconds of ``generation``, ``fs_and_staging``,
-    ``h2d``, ``kernel``, ``d2h``, ``labeling``, ``stage2``, ``makespan``.
+    ``labeling``, ``stage2``, ``makespan``, and ``h2d``, ``kernel``,
+    ``d2h`` as ``reduce_frames(timings=)`` gives them (nothing
+    synchronizes, so the filter's device time falls in ``d2h``).
     """
     dev = resolve_device(device)
     say = print if verbose else (lambda *a, **k: None)

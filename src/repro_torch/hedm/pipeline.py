@@ -43,6 +43,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.fabric import Fabric
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -284,17 +285,11 @@ def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def _lap(dev: torch.device, timings: Optional[Dict[str, float]], key: str,
-         t0: float) -> float:
-    """Add the wall seconds since ``t0`` to ``timings[key]`` (device work
-    included) and return the new start time; a no-op without ``timings``."""
-    if timings is None:
-        return t0
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t = _time.perf_counter()
-    timings[key] = timings.get(key, 0.0) + (t - t0)
-    return t
+def _event(dev: torch.device) -> torch.cuda.Event:
+    """A CUDA event recorded now on ``dev``'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
 
 
 def reduce_frames(frames: np.ndarray, dark: np.ndarray,
@@ -308,19 +303,42 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
     ``ops.hedm_reduce`` (the CUDA kernel on a card), ``False`` through its
     plain PyTorch version. Frames other than float32/uint16 are cast to
     float32 for the filter, as the oracle casts them; the centroids weigh
-    the frames as given. ``timings``, when given, accumulates wall seconds
-    per phase: ``h2d``, ``kernel`` (the filter), ``d2h`` and ``labeling``
-    (labels and centroids on the host).
+    the frames as given.
+
+    Into the tracer that `repro_torch.core.telemetry.recording` made
+    current it records, on ``time.perf_counter()`` and track ``host``, the
+    span ``stage1.reduce_frames`` (attrs ``frames``, ``dtype``) with
+    children ``stage1.h2d``, ``stage1.filter``, ``stage1.d2h``,
+    ``stage1.index`` and one ``stage1.labels`` and ``stage1.centroids`` a
+    frame, and the counters ``stage1.frames`` and ``stage1.h2d_bytes``
+    (frames and dark). On a card the first three children carry
+    ``device_s``: device seconds between CUDA events on the stream, read
+    once the blocking copy to the host is done. Nothing synchronizes.
+
+    ``timings``, when given, accumulates the host seconds of those spans
+    per phase: ``h2d``, ``kernel`` (the filter's launch), ``d2h`` (which
+    waits for the filter) and ``labeling`` (index, labels and centroids);
+    they add up to the call. With neither a tracer nor ``timings`` it
+    reads no clock and makes no CUDA event.
     """
     dev = resolve_device(device)
+    tr = telemetry.current()
+    if timings is not None and not tr.enabled:
+        tr = telemetry.Tracer()           # timings= is read off its spans
+    on = tr.enabled
+    events = on and dev.type == "cuda"
+    clock = _time.perf_counter
+    F, H, W = frames.shape
+    t0 = clock() if on else 0.0
+    ev0 = _event(dev) if events else None
     filter_in = (frames if frames.dtype in (np.float32, np.uint16)
                  else frames.astype(np.float32))
-    if timings is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t = _time.perf_counter()
+    dark32 = np.asarray(dark, dtype=np.float32)
+    h2d_bytes = filter_in.nbytes + dark32.nbytes
     frames_t = _tensor(filter_in, dev)
-    dark_t = _tensor(np.asarray(dark, dtype=np.float32), dev)
-    t = _lap(dev, timings, "h2d", t)
+    dark_t = _tensor(dark32, dev)
+    ev1 = _event(dev) if events else None
+    t1 = clock() if on else 0.0
     if use_kernel:
         from repro_torch.kernels.ops import hedm_reduce
         masks, counts = hedm_reduce(frames_t, dark_t, threshold=threshold)
@@ -328,15 +346,19 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
         from repro_torch.kernels.hedm_reduce import reference
         masks, counts = reference(frames_t, dark_t, threshold=threshold)
     del frames_t, filter_in
-    t = _lap(dev, timings, "kernel", t)
+    ev2 = _event(dev) if events else None
+    t2 = clock() if on else 0.0
     masks = masks.cpu().numpy()
     counts = counts.cpu().numpy()
-    t = _lap(dev, timings, "d2h", t)
-    H, W = frames.shape[1:]
+    ev3 = _event(dev) if events else None
+    t3 = clock() if on else 0.0
     yy, xx = np.divmod(np.arange(H * W), W)
-    out = []
-    for f in range(frames.shape[0]):
+    t4 = clock() if on else 0.0
+    out, per_frame = [], []
+    for f in range(F):
+        ta = clock() if on else 0.0
         labels, n = label_components(masks[f] > 0)
+        tb = clock() if on else 0.0
         # intensity-weighted centroids: one bincount pass per moment instead
         # of a per-label nonzero scan over the full frame
         lab = labels.ravel()
@@ -349,7 +371,32 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
         peaks = np.stack([s_y / denom, s_x / denom, s_i],
                          axis=1)[1:].astype(np.float32)
         out.append(ReducedFrame(f, int(counts[f]), n, peaks))
-    _lap(dev, timings, "labeling", t)
+        if on:
+            per_frame.append((ta, tb, clock()))
+    if not on:
+        return out
+    t_end = clock()
+    device_s = [None] * 3
+    if events:       # the copy to the host has blocked; this wait is moot
+        ev3.synchronize()
+        device_s = [a.elapsed_time(b) * 1e-3
+                    for a, b in ((ev0, ev1), (ev1, ev2), (ev2, ev3))]
+    root = tr.span("stage1.reduce_frames", t0, t_end, track="host",
+                   frames=F, dtype=str(frames.dtype))
+    phases = [tr.span(f"stage1.{name}", a, b, parent=root, device_s=sec)
+              for name, a, b, sec in zip(("h2d", "filter", "d2h"),
+                                         (t0, t1, t2), (t1, t2, t3),
+                                         device_s)]
+    tr.span("stage1.index", t3, t4, parent=root)
+    for ta, tb, tc in per_frame:
+        tr.span("stage1.labels", ta, tb, parent=root)
+        tr.span("stage1.centroids", tb, tc, parent=root)
+    tr.metrics.counter("stage1.frames").inc(F)
+    tr.metrics.counter("stage1.h2d_bytes").inc(h2d_bytes)
+    if timings is not None:
+        for key, sec in zip(("h2d", "kernel", "d2h", "labeling"),
+                            [p.duration for p in phases] + [t_end - t3]):
+            timings[key] = timings.get(key, 0.0) + sec
     return out
 
 
@@ -677,16 +724,36 @@ def forward_model(angles: torch.Tensor, gvec: torch.Tensor) -> torch.Tensor:
 def fit_orientation(y_obs: torch.Tensor, gvec: torch.Tensor,
                     theta0: torch.Tensor, iters: int = 12,
                     damping: float = 1e-3) -> torch.Tensor:
-    """Gauss-Newton (Levenberg-damped) fit of one grid point."""
+    """Gauss-Newton (Levenberg-damped) fit of one grid point.
+
+    Into the tracer that `repro_torch.core.telemetry.recording` made
+    current each iteration records a host span
+    ``stage2.gn_step`` (attr ``step``) with children ``stage2.residual``,
+    ``stage2.jacobian`` and ``stage2.solve``, on ``time.perf_counter()``;
+    under ``vmap`` the body runs once for the whole batch, so a fit
+    records ``iters`` steps."""
     eye = torch.eye(3, dtype=theta0.dtype, device=theta0.device)
     jac = torch.func.jacfwd(lambda t: forward_model(t, gvec))
+    tracer = telemetry.current()
+    on = tracer.enabled
+    clock = _time.perf_counter
     theta = theta0
-    for _ in range(iters):
+    for i in range(iters):
+        t0 = clock() if on else 0.0
         r = forward_model(theta, gvec) - y_obs
+        t1 = clock() if on else 0.0
         J = jac(theta)                                # (M,3)
+        t2 = clock() if on else 0.0
         JtJ = J.T @ J + damping * eye
         delta = torch.linalg.solve(JtJ, J.T @ r)
         theta = theta - delta
+        if on:
+            t3 = clock()
+            step = tracer.span("stage2.gn_step", t0, t3, track="host",
+                               step=i)
+            for name, a, b in (("residual", t0, t1), ("jacobian", t1, t2),
+                               ("solve", t2, t3)):
+                tracer.span(f"stage2.{name}", a, b, parent=step)
     return theta
 
 
@@ -701,12 +768,28 @@ def fit_grid(y_obs: ArrayLike, gvec: ArrayLike, theta0: ArrayLike,
     many-task structure of Fig. 8 expressed as data parallelism.
 
     Sets ``torch.backends.cuda.matmul.allow_tf32 = False``: the fit's
-    products and 3x3 solves stay in full float32, as in the reference."""
+    products and 3x3 solves stay in full float32, as in the reference.
+
+    Into the tracer that `repro_torch.core.telemetry.recording` made
+    current it records the host span ``stage2.fit_grid`` (attrs
+    ``points``, ``n_gvec``, ``iters``) around :func:`fit_orientation`'s
+    steps. The result is the same with recording on or off.
+    """
     dev = resolve_device(device)
+    tr = telemetry.current()
+    t_call = _time.perf_counter() if tr.enabled else 0.0
     torch.backends.cuda.matmul.allow_tf32 = False
     g = _as_f32(gvec, dev)
-    return torch.func.vmap(lambda y, t0: fit_orientation(y, g, t0, iters))(
-        _as_f32(y_obs, dev), _as_f32(theta0, dev))
+    obs, start = _as_f32(y_obs, dev), _as_f32(theta0, dev)
+    fit = torch.func.vmap(lambda y, t0: fit_orientation(y, g, t0, iters))
+    if not tr.enabled:
+        return fit(obs, start)
+    with tr.region("stage2.fit_grid", t_call, track="host",
+                   points=obs.shape[0], n_gvec=g.shape[0],
+                   iters=iters) as sp:
+        out = fit(obs, start)
+        sp.t_end = _time.perf_counter()
+    return out
 
 
 def synth_grid_observations(n_points: int, gvec: np.ndarray, seed: int = 3,

@@ -130,6 +130,35 @@ def test_stage1_on_card_equals_cpu(card):
         T.pack_reduced(on_cpu).tobytes()
 
 
+def test_stage1_recording_times_the_device_phases_by_events(card,
+                                                           monkeypatch):
+    from repro_torch.core import telemetry
+    frames, dark = T.simulate_detector_frames(2, size=256, n_spots=8, seed=6)
+    frames = frames.astype(np.uint16)
+    want = T.reduce_frames(frames, dark, device=card)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("reduce_frames synchronized the device")
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    timings, tr = {}, telemetry.Tracer()
+    with telemetry.recording(tr):
+        got = T.reduce_frames(frames, dark, device=card, timings=timings)
+    assert T.pack_reduced(got).tobytes() == T.pack_reduced(want).tobytes()
+    (root,) = tr.roots()
+    kids = {k.name: k for k in tr.children(root)}
+    for key, name in (("h2d", "stage1.h2d"), ("kernel", "stage1.filter"),
+                      ("d2h", "stage1.d2h")):
+        assert kids[name].attrs["device_s"] > 0
+        assert timings[key] == pytest.approx(kids[name].duration)
+    # the copy to the host blocks, so its device seconds lie within the
+    # host span (clocks of two sources: 100 us of room)
+    d2h = kids["stage1.d2h"]
+    assert d2h.duration >= d2h.attrs["device_s"] - 1e-4
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    off = T.reduce_frames(frames, dark, device=card)
+    assert T.pack_reduced(off).tobytes() == T.pack_reduced(want).tobytes()
+
+
 def test_stage2_on_card_matches_cpu(card):
     gvec = T.make_gvectors()
     truth, obs = T.synth_grid_observations(256, gvec, device="cpu")

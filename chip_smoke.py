@@ -13,7 +13,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. Kernels vs their plain versions on the card. ``hedm_reduce`` at the test
    shapes (float32 and uint16), ragged shapes (widths 1, 3, 131 and 1027,
    heights 1, 5 and 67, uint16 with an odd width) and at (8, 2048, 2048):
-   masks and counts equal (``torch.equal``). ``flash_attention`` at the shapes of
+   masks and counts equal (``torch.equal``). ``hedm_label`` on K1's masks
+   of one uint16 frame of 2048x2048 (the benchmark's frame1 call), and of
+   8 such frames in uint16 and float32: n_signal, n_spots and peaks equal
+   to the host algorithm's byte for byte, its launches counted from 0 (one
+   a chunk of pass 1 and of each pass-2 step). ``flash_attention`` at the shapes of
    tests/test_kernels.py in float32 and bfloat16, at ragged S (100, 200),
    at the zamba2 prefill shape (1, 2048, 32 heads, 32 kv, hd 112) and a
    danube3-like GQA shape with a window (1, 2048, 32, 8, 120, window
@@ -55,7 +59,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``flash_fwd_tc`` (1e-3 + 2^-7 |ref|), and float32 at 2048 on
    ``flash_fwd`` (3e-5).
 4. The NF-HEDM main path: ``repro_torch.hedm.interactive.main`` at the
-   paper's size, 736 frames of 2048x2048 and 100,000 grid points.
+   paper's size, 736 frames of 2048x2048 and 100,000 grid points; the
+   launch counts set to 0 just before: ``hedm_label`` once a chunk of 8
+   frames in pass 1, and twice in pass 2 (relabel, weigh).
    4b. The streamed and multi-session drivers at 2048x2048:
    ``repro_torch.hedm.streaming.main`` over 64 frames (1.07 GB of float32,
    reduce windows of 8, a node cache of 16), the streamed output equal to
@@ -63,14 +69,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
    scans of 16 frames under a budget of 2 scans, every session's output
    equal to direct reduction byte for byte. Each driver's ``hedm_reduce``
    launches are counted from 0 and must be one per reduce window and one
-   per batch or direct reduction; its simulated turnaround, wall seconds
+   per batch or direct reduction, and its ``hedm_label`` launches those of
+   each call's chunks; its simulated turnaround, wall seconds
    and device time (``torch.profiler``) are printed.
 5. Timing of ``hedm_reduce`` at (736, 2048, 2048) float32 (CUDA events,
    median of 20 launches after warm-up) beside its HBM bound and its plain
    version, which is first held equal to the kernel on all 736 frames;
    from that one time, the port's ``nf_reduction`` row
    (benchmarks/paper_figures.py:91-108): microseconds a frame and the
-   736-frame time beside the paper's 106 s on 320 cores.
+   736-frame time beside the paper's 106 s on 320 cores. Then
+   ``hedm_label`` on that mask of the whole layer in one call (92 chunks,
+   each labelled again in pass 2): equal to the host algorithm byte for
+   byte, its launches counted, and timed (CUDA events, median of 5, its
+   two copies to the host included) beside its byte bound (the mask read
+   once, the signal pixels' values, the peaks) and the host algorithm's
+   seconds on the same mask.
 6. Serving on the card against the CPU at smoke size: zamba2-7b,
    h2o-danube3-4b, rwkv6-3b, qwen3-moe-30b-a3b and deepseek-v2-lite-16b
    smoke configs in float32, the same seed-made weights on both devices;
@@ -162,7 +175,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    float32 frames of 2048x2048, 12.35 GB, seed 0) held once on the host
    and cut into 16 shards of 46 frames as views, through ``staged_restore``
    on a ("data",) mesh of 1; ``hedm_reduce`` on the staged tensor (its
-   launch count set to 0 just before, read just after: 1) gives the mask
+   launch count set to 0 just before, read just after: 1, and none of
+   ``hedm_label``) gives the mask
    and counts that it gives on the frames put on the card directly
    (``torch.equal``); the staging seconds and GB/s.
    12b. internvl2-2b at full width and depth (1.896 B parameters, 3.79 GB
@@ -677,28 +691,72 @@ def device_time(torch, fn):
                      if "hedm_reduce" in e.key) / 1e6)
 
 
-def check_hedm_drivers(torch, dev, hr, zero_counts):
+def label_launches(HL, shape, n_spots):
+    """hedm_label's library calls for one call on an (F, H, W) stack whose
+    frames hold ``n_spots``: pass 1 a chunk, then each chunk with spots
+    weighed, after its relabeling where the call has several chunks."""
+    chunks = HL._chunks(*shape)
+    weighed = sum(int(sum(n_spots[a:b])) > 0 for a, b in chunks)
+    return len(chunks) + weighed * (1 + (len(chunks) > 1))
+
+
+def stage1_label_launches(HL, calls):
+    """hedm_label's library calls for ``reduce_frames`` calls on the card
+    of ``calls`` frames of SIZE x SIZE each, every frame with spots."""
+    return sum(label_launches(HL, (F, SIZE, SIZE), [1] * F) for F in calls)
+
+
+def check_label(HL, name, m, f, frames):
+    """Phases 3 and 5: ``hedm_label`` on K1's mask ``m`` and the frames
+    ``f`` on the card (its launch count set to 0 just before) against the
+    host algorithm on the same mask and ``frames`` (numpy): n_signal,
+    n_spots and peaks byte for byte, and one launch a chunk of pass 1 and
+    of each pass-2 step. Returns (signal pixels, spots, launches, chunks,
+    the host algorithm's seconds)."""
+    HL.hedm_label.launches = 0
+    got = HL.hedm_label(m, f)
+    launches = HL.hedm_label.launches
+    mask = m.cpu().numpy()
+    t0 = time.perf_counter()
+    want = HL.reference(mask, frames)
+    host_s = time.perf_counter() - t0
+    for what, g, w in zip(("n_signal", "n_spots", "peaks"), got, want):
+        if (g.dtype, g.shape) != (w.dtype, w.shape) or \
+                g.tobytes() != w.tobytes():
+            raise AssertionError(f"hedm_label != host algorithm on {name}: "
+                                 f"{what} differ")
+    expected = label_launches(HL, tuple(m.shape), want[1])
+    if launches != expected:
+        raise AssertionError(f"hedm_label on {name}: {launches} launches, "
+                             f"expected {expected}")
+    return (int(want[0].sum()), int(want[1].sum()), launches,
+            len(HL._chunks(*m.shape)), host_s)
+
+
+def check_hedm_drivers(torch, dev, hr, HL, zero_counts):
     """Phase 4b: the streamed and the multi-session drivers at 2048x2048,
     each with its launch counts set to 0 just before and read just after.
-    Returns {driver: hedm_reduce launches}."""
+    Returns {driver: (hedm_reduce launches, hedm_label launches)}."""
     from repro_torch.hedm import service, streaming
-    runs = {
+    runs = {                                 # and each call's frames
         "streaming": (lambda: streaming.main(
             device=dev, n_frames=64, frame_size=SIZE, verbose=False),
-            1 + -(-64 // 8)),                # the batch pass, 8 windows
+            [64] + [8] * 8),                 # the batch pass, 8 windows
         "service": (lambda: service.main(
             device=dev, n_frames=16, frame_size=SIZE, verbose=False),
-            4 * 3 + 3)}                      # 4 sessions x 3 scans, direct
+            [16] * (4 * 3 + 3))}             # 4 sessions x 3 scans, direct
     launches = {}
-    for name, (run, want) in runs.items():
+    for name, (run, calls) in runs.items():
         zero_counts()
         t0 = time.perf_counter()
         out, (busy_s, kernel_s) = device_time(torch, run)
         wall = time.perf_counter() - t0
-        launches[name] = hr.hedm_reduce.launches
+        launches[name] = (hr.hedm_reduce.launches, HL.hedm_label.launches)
+        want = (len(calls), stage1_label_launches(HL, calls))
         if launches[name] != want:
-            raise AssertionError(f"the {name} driver launched hedm_reduce "
-                                 f"{launches[name]} times, expected {want}")
+            raise AssertionError(f"the {name} driver launched (hedm_reduce, "
+                                 f"hedm_label) {launches[name]} times, "
+                                 f"expected {want}")
         phases = json.dumps({k: round(v, 4) for k, v in out["wall"].items()})
         card = (f"card: {busy_s:.4f}s of device activity, hedm_reduce "
                 f"{kernel_s * 1e3:.3f} ms (torch.profiler)")
@@ -706,8 +764,9 @@ def check_hedm_drivers(torch, dev, hr, zero_counts):
             st = out["stream"]
             print(f"[hedm-drivers] streaming, 64 frames of {SIZE}x{SIZE} "
                   f"(1.07 GB float32), window 8, cache 16: online == batch "
-                  f"bit for bit; hedm_reduce launches {launches[name]} (1 "
-                  f"batch + 8 windows); simulated turnaround batch "
+                  f"bit for bit; hedm_reduce launches {launches[name][0]} "
+                  f"(1 batch + 8 windows), hedm_label {launches[name][1]}; "
+                  f"simulated turnaround batch "
                   f"{out['batch_turnaround_s']:.4f}s, online "
                   f"{out['online_turnaround_s']:.4f}s (first results at "
                   f"{out['first_result_s']:.4f}s); stream peak resident "
@@ -719,8 +778,9 @@ def check_hedm_drivers(torch, dev, hr, zero_counts):
             print(f"[hedm-drivers] service, 3 scans of 16 frames of "
                   f"{SIZE}x{SIZE}, budget 2 scans, 4 sessions + 1 late: "
                   f"{out['n_outputs']} outputs == direct reduction byte for "
-                  f"byte; hedm_reduce launches {launches[name]} (12 session "
-                  f"+ 3 direct); {st.stages} stages ({st.restages} "
+                  f"byte; hedm_reduce launches {launches[name][0]} (12 "
+                  f"session + 3 direct), hedm_label {launches[name][1]}; "
+                  f"{st.stages} stages ({st.restages} "
                   f"re-stages), {st.evictions} evictions; simulated "
                   f"turnaround {out['turnaround_s']:.4f}s, late lease "
                   f"{'hit' if out['late']['hit'] else 're-stage'}; wall "
@@ -1538,6 +1598,7 @@ def staged_frames(np, torch, dev, zero_counts, n_frames, seconds):
     launches on the staged path."""
     from repro_torch.core.staging import staged_restore
     from repro_torch.hedm.pipeline import simulate_detector_frames
+    from repro_torch.kernels import hedm_label as HL
     from repro_torch.kernels.ops import hedm_reduce
     from repro_torch.launch.mesh import make_mesh
     t0 = time.perf_counter()
@@ -1562,6 +1623,7 @@ def staged_frames(np, torch, dev, zero_counts, n_frames, seconds):
     torch.cuda.synchronize()
     seconds["12a_kernel"] = time.perf_counter() - t0
     launches = hedm_reduce.launches
+    label_launches_12a = HL.hedm_label.launches
     t0 = time.perf_counter()
     direct = torch.from_numpy(frames).to(dev)
     torch.cuda.synchronize()
@@ -1579,11 +1641,13 @@ def staged_frames(np, torch, dev, zero_counts, n_frames, seconds):
           f"{n_bytes / stage_s / 1e9:.2f} GB/s (the frames put on the card "
           f"directly: {seconds['12a_direct_h2d']:.4f} s); staged tensor "
           f"{'equals' if same_frames else 'DIFFERS from'} the direct one; "
-          f"hedm_reduce on it: {launches} launch, "
+          f"hedm_reduce on it: {launches} launch (hedm_label "
+          f"{label_launches_12a}: K1 alone), "
           f"{int(c.sum())} spot pixels, mask and counts "
           f"{'equal' if same else 'DIFFER from'} K1's on the direct "
           f"frames; peak host RSS {rss_gb:.2f} GB", flush=True)
-    if not (same and same_frames and launches == 1):
+    if not (same and same_frames and launches == 1
+            and label_launches_12a == 0):
         raise AssertionError("phase 12a: the staged frames or K1 on them "
                              "differ from the frames put on the card")
     del direct, m, c, m_direct, c_direct, dark_t, frames, shards
@@ -2317,6 +2381,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                                            synth_grid_observations)
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels import hedm_label as HL
     from repro_torch.kernels import hedm_reduce as hr
     from repro_torch.kernels.ops import (flash_attention, hedm_reduce,
                                          mamba2_scan, rwkv6_wkv)
@@ -2327,6 +2392,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     def zero_counts():
         for fn in counted:
             fn.launches = 0
+        HL.hedm_label.launches = 0
         for fn in tensor_core:
             fn.launches_tc = 0
 
@@ -2384,6 +2450,20 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                                  f"{err}")
     print(f"[check] hedm_reduce == plain version on {len(cases)} inputs "
           f"(float32 and uint16, up to (8, 2048, 2048))", flush=True)
+    # the labeler on K1's masks at the benchmark's frame (one uint16 frame)
+    # and at a chunk of frames, against the host algorithm
+    u16 = np.clip(np.rint(big[0]), 0, 65535).astype(np.uint16)
+    labelled = []
+    for name, f in (("u16-1x2048x2048", u16[:1]), ("u16-8x2048x2048", u16),
+                    ("f32-8x2048x2048", big[0])):
+        ft = torch.from_numpy(f).to(dev)
+        m, _ = hedm_reduce(ft, torch.from_numpy(big[1]).to(dev), 200.0)
+        _, spots, n, _, _ = check_label(HL, name, m, ft, f)
+        labelled.append(f"{name} {spots} spots, {n} launches")
+    print("[check] hedm_label == host algorithm (n_signal, n_spots, peaks "
+          "byte for byte) on K1's masks: " + "; ".join(labelled),
+          flush=True)
+    del u16, ft, m
     prompts = launch_serve.draw_prompts(get_config("zamba2_7b").vocab)
     errs = check_lm_kernels(np, torch, dev, [len(p) for p in prompts])
     del big, cases
@@ -2415,15 +2495,23 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                            grid_points=grid_points)
     main_s = time.perf_counter() - t0
     launches = hr.hedm_reduce.launches
+    main_label_launches = HL.hedm_label.launches
+    want_label = stage1_label_launches(HL, [n_frames])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     print(f"[main] {main_s:.2f}s wall, hedm_reduce launches {launches}, "
+          f"hedm_label launches {main_label_launches} (expected "
+          f"{want_label}: {len(HL._chunks(n_frames, SIZE, SIZE))} chunks), "
           f"{out['n_spots']} spots over {out['n_frames']} frames, "
           f"recovered {out['recovered']:.4f}, peak device memory "
           f"{peak_gb:.2f} GB, peak host RSS {rss_gb:.2f} GB")
     print("[main] phases (s): " + json.dumps(out["phases"]), flush=True)
     if launches < 1:
         raise AssertionError("the main path never launched hedm_reduce")
+    if main_label_launches != want_label:
+        raise AssertionError(f"the main path launched hedm_label "
+                             f"{main_label_launches} times, expected "
+                             f"{want_label}")
     if out["n_spots"] < out["n_frames"]:
         raise AssertionError(f"fewer than one spot per frame: "
                              f"{out['n_spots']} over {out['n_frames']}")
@@ -2433,14 +2521,13 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     gc.collect()
 
     # 4b. the streamed and the multi-session drivers at 2048x2048
-    driver_launches = check_hedm_drivers(torch, dev, hr, zero_counts)
+    driver_launches = check_hedm_drivers(torch, dev, hr, HL, zero_counts)
 
     # 5. the kernel at the main path's shape: equal to the plain version
     # on every frame, then timed beside its bound and its plain version
     frames, dark = simulate_detector_frames(n_frames, size=SIZE, seed=2,
                                             device=dev)
     ft, dt = torch.from_numpy(frames).to(dev), torch.from_numpy(dark).to(dev)
-    del frames
     m, c = hedm_reduce(ft, dt, 200.0)
     for f0 in range(0, n_frames, CHUNK):
         m_ref, c_ref = hr.reference(ft[f0:f0 + CHUNK], dt, 200.0)
@@ -2448,7 +2535,27 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
                 and torch.equal(c[f0:f0 + CHUNK], c_ref)):
             raise AssertionError(f"hedm_reduce != plain version at "
                                  f"{full}, frames {f0}..{f0 + CHUNK}")
-    del m, c, m_ref, c_ref
+    del c, m_ref, c_ref
+    # the labeler on the layer's mask in one call (chunks of 8 frames, each
+    # labelled again in pass 2): equal to the host algorithm, then timed
+    # with its two copies beside the bytes it must move
+    n_signal, label_spots, label_n, label_chunks, label_host_s = \
+        check_label(HL, f"f32-{n_frames}x{SIZE}x{SIZE}", m, ft, frames)
+    del frames
+    gc.collect()
+    label_ms = time_ms(torch, lambda: HL.hedm_label(m, ft), reps=5,
+                       warmup=1)
+    label_bytes = m.numel() + 4 * n_signal + 12 * label_spots
+    label_bound_ms = label_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[time] hedm_label {full} float32 on K1's mask, {label_spots} "
+          f"spots, {label_n} launches in {label_chunks} chunks: "
+          f"{label_ms:.4f} ms (median of 5, its two copies included); "
+          f"bound {label_bound_ms:.4f} ms by bytes ({label_bytes / 1e9:.3f} "
+          f"GB: the mask once, the signal pixels' values, the peaks) = "
+          f"{label_bound_ms / label_ms * 100:.2f}% of the bound; the host "
+          f"algorithm on the same mask {label_host_s * 1e3:.1f} ms; equal "
+          f"byte for byte", flush=True)
+    del m
     ms = time_ms(torch, lambda: hedm_reduce(ft, dt, 200.0), reps=20)
 
     def plain_full():
@@ -2617,8 +2724,19 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "exact": max_err == 0,
-        "driver_launches": driver_launches,
+        "driver_launches": {k: v[0] for k, v in driver_launches.items()},
         "staged_launches": staged_launches, "nf_reduction": nf_row,
+    }, {
+        "name": "hedm_label", "route": "cuda",
+        "source": "src/repro_torch/csrc/hedm_label.cu",
+        "replaces": "host: src/repro/hedm/pipeline.py label_components and "
+                    "the np.bincount centroids",
+        "launches": main_label_launches, "max_abs_err": 0,
+        "ms": label_ms, "plain_ms": label_host_s * 1e3,
+        "bound_ms": label_bound_ms, "bound_by": "bytes",
+        "library_ms": None, "exact": True,
+        "driver_launches": {k: v[1] for k, v in driver_launches.items()},
+        "staged_launches": 0,
     }]
     for name, line in [("flash_attention", 110), ("mamba2_scan", 89),
                        ("rwkv6_wkv", 80)]:

@@ -26,7 +26,8 @@ anchors bit-exact — and the enabled path only RECORDS simulated times
 computed by the existing arithmetic; it never feeds back into them.
 
 Span taxonomy, metrics catalog and exporter how-tos are documented in
-``docs/observability.md``.
+``docs/observability.md``; the two paths of the port's stage 1 and what
+each records in ``docs/observability_torch.md``.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ The numpy generator is the reference package's, bit for bit;
 Stage 1 — data reduction (§VI-A): per-frame background subtraction, median
 filter, Laplacian edge response, threshold, connected-component labeling ->
 peak list. The filter half runs on the hedm_reduce CUDA kernel
-(`repro_torch.kernels.ops`, or its plain PyTorch version); labeling runs
-on host (networkx-free union-find).
+(`repro_torch.kernels.ops`, or its plain PyTorch version); labeling and
+centroids run on the card after the kernel (`repro_torch.kernels.hedm_label`)
+or on the host (networkx-free union-find).
 
 Stage 2 — orientation fitting (§V-C, Fig. 8): for every grid point, fit the
 crystal orientation (3 Euler-like params) to the observed diffraction
@@ -46,6 +47,8 @@ import torch
 from repro_torch.core import telemetry
 from repro_torch.core.fabric import Fabric
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import hedm_label
+from repro_torch.kernels.hedm_label import label_components
 
 
 # ---------------------------------------------------------------------------
@@ -141,133 +144,6 @@ def stream_to_fs(fabric: Fabric, frames: np.ndarray, prefix: str = "scan"
 # stage 1: reduction
 # ---------------------------------------------------------------------------
 
-def label_components(mask: np.ndarray) -> Tuple[np.ndarray, int]:
-    """Vectorized 4-connected component labeling (run-based two-pass).
-
-    Pass 1 finds horizontal runs of the whole mask at once (a sentinel
-    column keeps runs from spanning rows) and unions runs that overlap
-    between adjacent rows; pass 2 paints final labels with one scatter.
-    Work is O(H*W) vectorized + O(#runs) scalar — for sparse diffraction
-    masks #runs is ~100x smaller than #pixels, which is what makes stage-1
-    labeling faster than the filter kernel it post-processes.
-
-    Label numbering matches ``_union_find_label`` exactly (components
-    numbered by first pixel in row-major scan order), so the two are
-    interchangeable; tests assert equivalence.
-    """
-    H, W = mask.shape
-    m = np.ascontiguousarray(mask, dtype=bool)
-    if not m.any():
-        return np.zeros((H, W), np.int32), 0
-
-    # --- pass 1a: horizontal runs over the flattened mask -----------------
-    padded = np.zeros((H, W + 1), bool)          # sentinel column: runs
-    padded[:, :W] = m                            # never cross a row edge
-    flat = padded.ravel()
-    d = np.diff(flat.view(np.int8))
-    starts = np.flatnonzero(d == 1) + 1
-    ends = np.flatnonzero(d == -1) + 1           # every run closes (sentinel)
-    if flat[0]:
-        starts = np.concatenate(([0], starts))
-    rows = starts // (W + 1)
-    col_s = starts - rows * (W + 1)
-    col_e = ends - rows * (W + 1)
-    n_runs = len(starts)
-
-    # --- pass 1b: union runs that overlap between adjacent rows ----------
-    # Encode (row, col) into one monotone key so a SINGLE pair of
-    # searchsorted calls finds, for every run i in row r, the contiguous
-    # range [lo_i, hi_i) of row r-1 runs j with col_s[j] < col_e[i] and
-    # col_e[j] > col_s[i] (4-connectivity overlap). Runs in other rows fall
-    # outside [lo_i, hi_i) by key construction (row-0 runs get hi <= lo).
-    stride = W + 2                               # > any col value
-    key_s = rows * stride + col_s
-    key_e = rows * stride + col_e
-    target = (rows - 1) * stride
-    lo = np.searchsorted(key_e, target + col_s, side="right")
-    hi = np.searchsorted(key_s, target + col_e, side="left")
-    n_ov = np.maximum(hi - lo, 0)
-    pair_i = np.repeat(np.arange(n_runs), n_ov)
-    off = np.concatenate(([0], n_ov.cumsum()[:-1]))
-    pair_j = np.arange(n_ov.sum()) + np.repeat(lo - off, n_ov)
-
-    parent = np.arange(n_runs, dtype=np.int64)
-
-    def find(a: int) -> int:
-        while parent[a] != a:
-            parent[a] = parent[parent[a]]
-            a = parent[a]
-        return a
-
-    for i, j in zip(pair_i.tolist(), pair_j.tolist()):
-        ri, rj = find(i), find(j)
-        if ri != rj:                         # min-root union keeps scan order
-            if rj < ri:
-                ri, rj = rj, ri
-            parent[rj] = ri
-    # full path compression, vectorized (log-depth)
-    while True:
-        p2 = parent[parent]
-        if np.array_equal(p2, parent):
-            break
-        parent = p2
-
-    # --- pass 2: renumber roots in scan order, paint runs -----------------
-    roots = np.unique(parent)                # sorted == first-run order
-    run_label = (np.searchsorted(roots, parent) + 1).astype(np.int32)
-    lengths = ends - starts
-    pos = (np.arange(lengths.sum()) + np.repeat(
-        starts - np.concatenate(([0], lengths.cumsum()[:-1])), lengths))
-    out = np.zeros(H * (W + 1), np.int32)
-    out[pos] = np.repeat(run_label, lengths)
-    return out.reshape(H, W + 1)[:, :W], len(roots)
-
-
-def _union_find_label(mask: np.ndarray) -> Tuple[np.ndarray, int]:
-    """Pure-Python pixel-loop 4-connected labeling. Kept as the reference
-    oracle for :func:`label_components` (and the benchmark baseline) — the
-    hot path uses the vectorized labeler."""
-    H, W = mask.shape
-    labels = np.zeros((H, W), np.int32)
-    parent: List[int] = [0]
-
-    def find(a):
-        while parent[a] != a:
-            parent[a] = parent[parent[a]]
-            a = parent[a]
-        return a
-
-    nxt = 1
-    for i in range(H):
-        for j in range(W):
-            if not mask[i, j]:
-                continue
-            up = labels[i - 1, j] if i else 0
-            left = labels[i, j - 1] if j else 0
-            if up and left:
-                ru, rl = find(up), find(left)
-                labels[i, j] = ru
-                if ru != rl:
-                    parent[max(ru, rl)] = min(ru, rl)
-            elif up or left:
-                labels[i, j] = up or left
-            else:
-                parent.append(nxt)
-                labels[i, j] = nxt
-                nxt += 1
-    remap: Dict[int, int] = {}
-    count = 0
-    for i in range(H):
-        for j in range(W):
-            if labels[i, j]:
-                r = find(labels[i, j])
-                if r not in remap:
-                    count += 1
-                    remap[r] = count
-                labels[i, j] = remap[r]
-    return labels, count
-
-
 @dataclass
 class ReducedFrame:
     frame_id: int
@@ -292,6 +168,11 @@ def _event(dev: torch.device) -> torch.cuda.Event:
     return ev
 
 
+#: stage 1's phases that copy or launch on the device: on a card a CUDA
+#: event closes each, and their spans carry ``device_s``
+_DEVICE_PHASES = ("h2d", "filter", "label", "d2h")
+
+
 def reduce_frames(frames: np.ndarray, dark: np.ndarray,
                   threshold: float = 200.0, use_kernel: bool = True,
                   device: DeviceLike = "cuda",
@@ -305,21 +186,36 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
     float32 for the filter, as the oracle casts them; the centroids weigh
     the frames as given.
 
+    On a card with ``use_kernel=True`` the mask stays on the card:
+    `repro_torch.kernels.hedm_label` labels and weighs it there, and only
+    the per-frame counts and the peaks come back, in two blocking copies
+    (frames other than float32/uint16 are weighed as float64, copied to the
+    card beside the filter's float32). Otherwise the mask comes back and
+    the host labels and weighs it (``hedm_label.reference``'s algorithm);
+    the two give the same bytes.
+
     Into the tracer that `repro_torch.core.telemetry.recording` made
     current it records, on ``time.perf_counter()`` and track ``host``, the
     span ``stage1.reduce_frames`` (attrs ``frames``, ``dtype``) with
-    children ``stage1.h2d``, ``stage1.filter``, ``stage1.d2h``,
-    ``stage1.index`` and one ``stage1.labels`` and ``stage1.centroids`` a
-    frame, and the counters ``stage1.frames`` and ``stage1.h2d_bytes``
-    (frames and dark). On a card the first three children carry
-    ``device_s``: device seconds between CUDA events on the stream, read
-    once the blocking copy to the host is done. Nothing synchronizes.
+    children ``stage1.h2d`` and ``stage1.filter``, then on the card
+    ``stage1.label`` (pass 1's launch), ``stage1.d2h`` (the counts),
+    ``stage1.label`` and ``stage1.d2h`` again (the peaks' launch and copy,
+    when there are spots) and ``stage1.unpack``, or on the host
+    ``stage1.d2h`` (the mask), ``stage1.index`` and one ``stage1.labels``
+    and ``stage1.centroids`` a frame; and the counters ``stage1.frames``,
+    ``stage1.h2d_bytes`` (frames, dark, and weights where copied) and, on
+    the card path,
+    ``stage1.card_labeled_frames``. On a card the ``h2d``, ``filter``,
+    ``label`` and ``d2h`` spans carry ``device_s``: device seconds between
+    CUDA events on the stream, read once the last blocking copy to the host
+    is done. Nothing synchronizes.
 
     ``timings``, when given, accumulates the host seconds of those spans
-    per phase: ``h2d``, ``kernel`` (the filter's launch), ``d2h`` (which
-    waits for the filter) and ``labeling`` (index, labels and centroids);
-    they add up to the call. With neither a tracer nor ``timings`` it
-    reads no clock and makes no CUDA event.
+    per phase: ``h2d``, ``kernel`` (the filter's launch), ``d2h`` (the
+    copies, which wait for the device) and ``labeling`` (the rest: the
+    labeler's launches and the unpacking, or the host's index, labels and
+    centroids); they add up to the call. With neither a tracer nor
+    ``timings`` it reads no clock and makes no CUDA event.
     """
     dev = resolve_device(device)
     tr = telemetry.current()
@@ -328,74 +224,93 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
     on = tr.enabled
     events = on and dev.type == "cuda"
     clock = _time.perf_counter
-    F, H, W = frames.shape
-    t0 = clock() if on else 0.0
-    ev0 = _event(dev) if events else None
-    filter_in = (frames if frames.dtype in (np.float32, np.uint16)
-                 else frames.astype(np.float32))
+    F = frames.shape[0]
+    # the phases in order: (name, host end, CUDA event at the end or None)
+    marks = [("", clock(), _event(dev) if events else None)] if on else []
+
+    def mark(name: str) -> None:
+        if on:
+            marks.append((name, clock(), _event(dev) if events and name
+                          in _DEVICE_PHASES else None))
+
+    on_card = use_kernel and dev.type == "cuda"
+    as_given = frames.dtype in (np.float32, np.uint16)
+    filter_in = frames if as_given else frames.astype(np.float32)
     dark32 = np.asarray(dark, dtype=np.float32)
-    h2d_bytes = filter_in.nbytes + dark32.nbytes
     frames_t = _tensor(filter_in, dev)
     dark_t = _tensor(dark32, dev)
-    ev1 = _event(dev) if events else None
-    t1 = clock() if on else 0.0
+    # the card's labeler weighs the frames as given; float64 holds any
+    # other type's values as the host's centroids take them
+    weights_t = (frames_t if as_given or not on_card
+                 else _tensor(frames.astype(np.float64), dev))
+    h2d_bytes = (filter_in.nbytes + dark32.nbytes
+                 + (0 if weights_t is frames_t else weights_t.nbytes))
+    mark("h2d")
     if use_kernel:
         from repro_torch.kernels.ops import hedm_reduce
         masks, counts = hedm_reduce(frames_t, dark_t, threshold=threshold)
     else:
         from repro_torch.kernels.hedm_reduce import reference
         masks, counts = reference(frames_t, dark_t, threshold=threshold)
-    del frames_t, filter_in
-    ev2 = _event(dev) if events else None
-    t2 = clock() if on else 0.0
-    masks = masks.cpu().numpy()
-    counts = counts.cpu().numpy()
-    ev3 = _event(dev) if events else None
-    t3 = clock() if on else 0.0
-    yy, xx = np.divmod(np.arange(H * W), W)
-    t4 = clock() if on else 0.0
-    out, per_frame = [], []
-    for f in range(F):
-        ta = clock() if on else 0.0
-        labels, n = label_components(masks[f] > 0)
-        tb = clock() if on else 0.0
-        # intensity-weighted centroids: one bincount pass per moment instead
-        # of a per-label nonzero scan over the full frame
-        lab = labels.ravel()
-        sel = np.flatnonzero(lab)
-        l_s, v_s = lab[sel], frames[f].ravel()[sel].astype(np.float64)
-        s_i = np.bincount(l_s, weights=v_s, minlength=n + 1)
-        s_y = np.bincount(l_s, weights=v_s * yy[sel], minlength=n + 1)
-        s_x = np.bincount(l_s, weights=v_s * xx[sel], minlength=n + 1)
-        denom = np.maximum(s_i, 1e-9)
-        peaks = np.stack([s_y / denom, s_x / denom, s_i],
-                         axis=1)[1:].astype(np.float32)
-        out.append(ReducedFrame(f, int(counts[f]), n, peaks))
-        if on:
-            per_frame.append((ta, tb, clock()))
+    del dark_t, filter_in
+    mark("filter")
+    out = []
+    if on_card:
+        lab = hedm_label.label(masks, weights_t)
+        mark("label")
+        n_signal, n_spots = lab.head.cpu().numpy()
+        mark("d2h")
+        peaks = np.zeros((0, 3), np.float32)
+        if n_spots.any():
+            peaks_t = hedm_label.weigh(lab, n_spots)
+            mark("label")
+            peaks = peaks_t.cpu().numpy()
+            mark("d2h")
+        del lab, masks, frames_t, weights_t
+        start = 0
+        for f in range(F):
+            n = int(n_spots[f])
+            out.append(ReducedFrame(f, int(n_signal[f]), n,
+                                    peaks[start:start + n]))
+            start += n
+        mark("unpack")
+    else:
+        del frames_t, weights_t
+        masks = masks.cpu().numpy()
+        counts = counts.cpu().numpy()
+        mark("d2h")
+        index = hedm_label.signal_index(masks)
+        mark("index")
+        for f, (sel, yy, xx) in enumerate(index):
+            labels, n = label_components(masks[f] > 0)
+            mark("labels")
+            peaks = hedm_label.centroids(labels.ravel()[sel], n,
+                                         frames[f].ravel()[sel], yy, xx)
+            out.append(ReducedFrame(f, int(counts[f]), n, peaks))
+            mark("centroids")
     if not on:
         return out
-    t_end = clock()
-    device_s = [None] * 3
-    if events:       # the copy to the host has blocked; this wait is moot
-        ev3.synchronize()
-        device_s = [a.elapsed_time(b) * 1e-3
-                    for a, b in ((ev0, ev1), (ev1, ev2), (ev2, ev3))]
-    root = tr.span("stage1.reduce_frames", t0, t_end, track="host",
-                   frames=F, dtype=str(frames.dtype))
-    phases = [tr.span(f"stage1.{name}", a, b, parent=root, device_s=sec)
-              for name, a, b, sec in zip(("h2d", "filter", "d2h"),
-                                         (t0, t1, t2), (t1, t2, t3),
-                                         device_s)]
-    tr.span("stage1.index", t3, t4, parent=root)
-    for ta, tb, tc in per_frame:
-        tr.span("stage1.labels", ta, tb, parent=root)
-        tr.span("stage1.centroids", tb, tc, parent=root)
+    if events:       # the copies to the host have blocked; this wait is moot
+        [ev for _, _, ev in marks if ev is not None][-1].synchronize()
+    root = tr.span("stage1.reduce_frames", marks[0][1], marks[-1][1],
+                   track="host", frames=F, dtype=str(frames.dtype))
+    phases: Dict[str, float] = {}
+    for (_, a, ev_a), (name, b, ev_b) in zip(marks, marks[1:]):
+        attrs = {}
+        if name in _DEVICE_PHASES:
+            attrs["device_s"] = (ev_a.elapsed_time(ev_b) * 1e-3
+                                 if ev_a and ev_b else None)
+        tr.span(f"stage1.{name}", a, b, parent=root, **attrs)
+        phases[name] = phases.get(name, 0.0) + (b - a)
     tr.metrics.counter("stage1.frames").inc(F)
     tr.metrics.counter("stage1.h2d_bytes").inc(h2d_bytes)
+    if on_card:
+        tr.metrics.counter("stage1.card_labeled_frames").inc(F)
     if timings is not None:
-        for key, sec in zip(("h2d", "kernel", "d2h", "labeling"),
-                            [p.duration for p in phases] + [t_end - t3]):
+        host = {"h2d": phases["h2d"], "kernel": phases["filter"],
+                "d2h": phases["d2h"]}
+        host["labeling"] = root.duration - sum(host.values())
+        for key, sec in host.items():
             timings[key] = timings.get(key, 0.0) + sec
     return out
 

@@ -5,8 +5,9 @@ interface (no PyTorch headers, so a build takes seconds, not minutes), all
 sources at once in parallel. Libraries go to ``build/repro_torch_kernels/``
 at the root of the checkout, named by a hash of the source, the headers in
 ``csrc/`` and the source's flags: a source is rebuilt only when that hash
-changes. ``hedm_reduce`` alone builds with ``--fmad=false``, which its
-bit-exactness needs; the other kernels build with contraction on.
+changes. ``hedm_reduce`` and ``hedm_label`` build with ``--fmad=false``,
+which their bit-exactness needs; the other kernels build with contraction
+on.
 Each build writes the compiler's output (``-Xptxas=-v``: registers, shared
 memory, spills) beside the library as ``<name>-<hash>.log``.
 
@@ -31,7 +32,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"hedm_reduce": ("--fmad=false",)}
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"hedm_reduce": ("--fmad=false",),
+                                            "hedm_label": ("--fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -19,6 +19,7 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.hedm import pipeline as T
 from repro_torch.hedm import service, streaming
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import hedm_label as HL
 from repro_torch.kernels import hedm_reduce as port
 from repro_torch.kernels import mamba2_scan as ms
 from repro_torch.kernels import rwkv6_wkv as wk
@@ -28,9 +29,9 @@ from repro_torch.models import model as M
 from repro_torch.models import rwkv6 as rw
 from repro_torch.serve.engine import Request, ServeSession, prefill_step
 from torch_parity import HEDM_REDUCE_CASES as CASES
-from torch_parity import (FLASH_SHAPES, SCAN_SHAPES, WKV_SHAPES,
-                          flash_inputs, scan_float64, scan_inputs,
-                          wkv_inputs)
+from torch_parity import (FLASH_SHAPES, LABEL_MASKS, SCAN_SHAPES,
+                          WKV_SHAPES, flash_inputs, label_frames, label_mask,
+                          scan_float64, scan_inputs, wkv_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -121,13 +122,127 @@ def test_kernel_rejects_non_contiguous_input(card):
         hedm_reduce(f, torch.zeros(16, 16, device=card), 100.0)
 
 
-def test_stage1_on_card_equals_cpu(card):
-    frames, dark = T.simulate_detector_frames(4, size=192, n_spots=8, seed=6)
-    on_card = T.reduce_frames(frames, dark, device=card)
+#: hedm_label's shapes (F, H, W): a detector frame at 1 and 3 frames, and
+#: at 1, 3 and 40 frames a small square, a ragged frame, a row and a column
+LABEL_SHAPES = ([(F, 2048, 2048) for F in (1, 3)]
+                + [(F, H, W) for H, W in ((192, 192), (257, 131), (1, 517),
+                                          (517, 1)) for F in (1, 3, 40)])
+
+
+def _label_launches(shape, n_spots):
+    """The library calls of one `hedm_label`: pass 1 a chunk, then for each
+    chunk with spots its weighing, after its relabeling where there are
+    several chunks."""
+    chunks = HL._chunks(*shape)
+    weighed = sum(int(n_spots[a:b].sum()) > 0 for a, b in chunks)
+    return len(chunks) + weighed * (1 + (len(chunks) > 1))
+
+
+def _label_matches_host(card, mask, dtypes=(np.uint16, np.float32)):
+    """The card's labeler on ``mask`` against the host algorithm, with
+    uint16 and float32 weights: counts and peaks bit for bit, and every
+    launch counted."""
+    m = torch.from_numpy(mask).to(card)
+    for dtype in dtypes:
+        frames = label_frames(mask.shape, dtype, seed=7)
+        before = HL.hedm_label.launches
+        got = HL.hedm_label(m, torch.from_numpy(frames).to(card))
+        want = HL.reference(mask, frames)
+        assert HL.hedm_label.launches == before + _label_launches(
+            mask.shape, want[1])
+        for name, g, w in zip(("n_signal", "n_spots", "peaks"), got, want):
+            assert (g.dtype, g.shape) == (w.dtype, w.shape), (name, dtype)
+            assert g.tobytes() == w.tobytes(), (name, dtype)
+
+
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", LABEL_MASKS)
+def test_label_kernel_matches_host(card, kind, shape):
+    _label_matches_host(card, label_mask(kind, *shape, seed=sum(shape)))
+
+
+@pytest.mark.parametrize("kind", ["random-0.05", "spiral", "checkerboard"])
+@pytest.mark.parametrize("shape", [(40, 192, 192), (7, 257, 131)], ids=str)
+def test_label_kernel_over_chunks(card, monkeypatch, kind, shape):
+    # chunks of three frames, the last one short: pass 2 labels each again
+    monkeypatch.setattr(HL, "CHUNK_PIXELS", 3 * shape[1] * shape[2])
+    assert len(HL._chunks(*shape)) > 2
+    _label_matches_host(card, label_mask(kind, *shape, seed=3))
+
+
+@pytest.mark.parametrize("kind", ["full", "spiral", "rings",
+                                  "checkerboard", "random-0.05"])
+@pytest.mark.parametrize("shape", [(1, 2048, 2048), (3, 257, 131)],
+                         ids=str)
+def test_label_kernel_sums_uint16_in_pixel_order_too(card, monkeypatch,
+                                                     kind, shape):
+    # where the sums might not be exact (a frame larger than any detector's)
+    # uint16 takes the ordered pass 2 of float32; here it is forced
+    monkeypatch.setattr(HL, "_exact_sums", lambda H, W: False)
+    _label_matches_host(card, label_mask(kind, *shape, seed=9), (np.uint16,))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.int32, np.uint8,
+                                   np.float16], ids=str)
+@pytest.mark.parametrize("kind", ["full", "spiral", "random-0.05"])
+def test_label_kernel_weighs_any_frame_type(card, kind, dtype):
+    # float64 as given; the others cast to float64 on the card, as the host
+    # casts them
+    _label_matches_host(card, label_mask(kind, 3, 257, 131, seed=4), (dtype,))
+
+
+def _detector_scan(F, size, dtype):
+    frames, dark = T.simulate_detector_frames(F, size=size, n_spots=12,
+                                              seed=6)
+    if dtype in (np.uint16, np.int32):  # as an integer detector stores it
+        frames = np.clip(np.rint(frames), 0, 65535).astype(dtype)
+    return frames, dark
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32, np.int32])
+@pytest.mark.parametrize("F,size", [(1, 2048), (8, 192)])
+def test_stage1_on_card_equals_cpu(card, monkeypatch, F, size, dtype):
+    from repro_torch.core import telemetry
+    frames, dark = _detector_scan(F, size, dtype)
+    copies = []
+    cpu = torch.Tensor.cpu
+
+    def counted(t, *args, **kwargs):
+        copies.append(t.is_cuda)
+        return cpu(t, *args, **kwargs)
+    monkeypatch.setattr(torch.Tensor, "cpu", counted)
+    tr = telemetry.Tracer()
+    before = HL.hedm_label.launches
+    with telemetry.recording(tr):
+        on_card = T.reduce_frames(frames, dark, device=card)
+    monkeypatch.undo()
+    # the mask stays on the card: two copies come back, the counts and
+    # the peaks; one chunk, labelled and weighed
+    assert sum(copies) == 2
+    assert HL.hedm_label.launches == before + 2
+    counters = tr.metrics.snapshot()["counters"]
+    assert counters["stage1.card_labeled_frames"] == F
     on_cpu = T.reduce_frames(frames, dark, device="cpu")
-    assert sum(r.n_spots for r in on_card) >= 4
+    assert sum(r.n_spots for r in on_card) >= 4 * F
     assert T.pack_reduced(on_card).tobytes() == \
         T.pack_reduced(on_cpu).tobytes()
+
+
+def test_stage1_with_the_plain_filter_labels_on_the_host(card):
+    from repro_torch.core import telemetry
+    frames, dark = _detector_scan(2, 192, np.uint16)
+    tr = telemetry.Tracer()
+    before = HL.hedm_label.launches
+    with telemetry.recording(tr):
+        got = T.reduce_frames(frames, dark, use_kernel=False, device=card)
+    assert HL.hedm_label.launches == before
+    counters = tr.metrics.snapshot()["counters"]
+    assert counters.get("stage1.card_labeled_frames", 0) == 0
+    names = [k.name for k in tr.children(tr.roots()[0])]
+    assert names[:4] == ["stage1.h2d", "stage1.filter", "stage1.d2h",
+                         "stage1.index"]
+    want = T.reduce_frames(frames, dark, device="cpu")
+    assert T.pack_reduced(got).tobytes() == T.pack_reduced(want).tobytes()
 
 
 def test_stage1_recording_times_the_device_phases_by_events(card,
@@ -145,15 +260,29 @@ def test_stage1_recording_times_the_device_phases_by_events(card,
         got = T.reduce_frames(frames, dark, device=card, timings=timings)
     assert T.pack_reduced(got).tobytes() == T.pack_reduced(want).tobytes()
     (root,) = tr.roots()
-    kids = {k.name: k for k in tr.children(root)}
+    kids = tr.children(root)
+    assert [k.name for k in kids] == [
+        "stage1.h2d", "stage1.filter", "stage1.label", "stage1.d2h",
+        "stage1.label", "stage1.d2h", "stage1.unpack"]
     for key, name in (("h2d", "stage1.h2d"), ("kernel", "stage1.filter"),
                       ("d2h", "stage1.d2h")):
-        assert kids[name].attrs["device_s"] > 0
-        assert timings[key] == pytest.approx(kids[name].duration)
-    # the copy to the host blocks, so its device seconds lie within the
-    # host span (clocks of two sources: 100 us of room)
-    d2h = kids["stage1.d2h"]
-    assert d2h.duration >= d2h.attrs["device_s"] - 1e-4
+        spans = [k for k in kids if k.name == name]
+        assert all(k.attrs["device_s"] > 0 for k in spans)
+        assert timings[key] == pytest.approx(sum(k.duration for k in spans))
+    # the labeler's launches carry their kernels' device seconds; labeling
+    # is their host seconds and the unpacking's
+    labels = [k for k in kids if k.name == "stage1.label"]
+    assert all(k.attrs["device_s"] > 0 for k in labels)
+    assert "device_s" not in kids[-1].attrs
+    assert timings["labeling"] == pytest.approx(
+        sum(k.duration for k in labels) + kids[-1].duration)
+    assert sum(timings.values()) == pytest.approx(root.duration)
+    assert tr.metrics.snapshot()["counters"][
+        "stage1.card_labeled_frames"] == 2
+    # the copies to the host block, so their device seconds lie within the
+    # host spans (clocks of two sources: 100 us of room)
+    for d2h in (k for k in kids if k.name == "stage1.d2h"):
+        assert d2h.duration >= d2h.attrs["device_s"] - 1e-4
     monkeypatch.setattr(torch.cuda, "Event", refuse)
     off = T.reduce_frames(frames, dark, device=card)
     assert T.pack_reduced(off).tobytes() == T.pack_reduced(want).tobytes()

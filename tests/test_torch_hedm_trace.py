@@ -86,6 +86,24 @@ def test_reduce_frames_span_tree(use_kernel, dtype):
             assert k.attrs["device_s"] is None
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_host_path_labels_no_frame_on_the_card(use_kernel):
+    # the CPU, like use_kernel=False on a card, takes the host path: the
+    # card's labeling counter stays 0 and the host's span tree is whole
+    frames, dark = _scan(n=3, size=40, dtype=np.uint16)
+    tr = telemetry.Tracer()
+    with telemetry.recording(tr):
+        T.reduce_frames(frames, dark, use_kernel=use_kernel, device=CPU)
+    counters = tr.metrics.snapshot()["counters"]
+    assert counters.get("stage1.card_labeled_frames", 0) == 0
+    assert counters["stage1.frames"] == 3
+    (root,) = tr.roots()
+    names = [k.name for k in tr.children(root)]
+    assert names == list(STAGE1_CHILDREN) + [
+        "stage1.labels", "stage1.centroids"] * 3
+    assert not {"stage1.label", "stage1.unpack"} & set(names)
+
+
 def test_reduce_frames_counters_are_the_arithmetic():
     frames, dark = _scan(n=3, size=40, dtype=np.uint16)
     F, H, W = frames.shape

@@ -117,6 +117,86 @@ HEDM_REDUCE_CASES = {
 }
 
 
+
+#: hedm_label's masks: `label_mask`'s kinds. The patterns vary their phase
+#: from frame to frame, so frames of one stack differ.
+LABEL_MASKS = ("empty", "full", "checkerboard", "hstripes", "vstripes",
+               "spiral", "rings", "edges", "random-0.001", "random-0.05",
+               "random-0.5")
+
+
+def _spiral(H, W):
+    """A one-pixel path spiralling inward with one-pixel gaps: it crosses
+    every 32-pixel tile border of the frame many times."""
+    m = np.zeros((H, W), np.uint8)
+    for t in range(0, min(H, W), 2):
+        top, bottom, left, right = t, H - 1 - t, t, W - 1 - t
+        if top > bottom or left > right:
+            break
+        m[top, max(left - 2, 0):right + 1] = 1
+        m[top:bottom + 1, right] = 1
+        m[bottom, left:right + 1] = 1
+        m[min(top + 2, bottom):bottom + 1, left] = 1
+    return m
+
+
+def _edges(H, W, rng):
+    """The frame's border cut at the middle of each side (four components,
+    each on two edges and a corner) and sparse pixels inside."""
+    m = (rng.random((H, W)) < 0.02).astype(np.uint8)
+    m[[0, -1], :] = 1
+    m[:, [0, -1]] = 1
+    m[[0, -1], W // 2] = 0
+    m[H // 2, [0, -1]] = 0
+    return m
+
+
+def label_mask(kind, F, H, W, seed=0):
+    """(F, H, W) uint8 mask of ``kind`` (one of :data:`LABEL_MASKS`)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:H, :W]
+    frames = []
+    for f in range(F):
+        if kind.startswith("random-"):
+            m = rng.random((H, W)) < float(kind.split("-")[1])
+        elif kind == "empty":
+            m = np.zeros((H, W))
+        elif kind == "full":
+            m = np.ones((H, W))
+        elif kind == "checkerboard":
+            m = (yy + xx + f) % 2 == 0
+        elif kind == "hstripes":
+            m = (yy + f) % 2 == 0
+        elif kind == "vstripes":
+            m = (xx + f) % 2 == 0
+        elif kind == "spiral":
+            m = np.roll(_spiral(H, W), f, axis=1)
+        elif kind == "rings":          # like powder rings: thin, wide boxes
+            r = np.hypot(yy - H / 2, xx - W / 2 + f)
+            m = np.zeros((H, W), bool)
+            for radius in (min(H, W) / 5, min(H, W) / 3, max(H, W) / 2):
+                m |= np.abs(r - radius) < 1.5
+        elif kind == "edges":
+            m = _edges(H, W, rng)
+        else:
+            raise ValueError(kind)
+        frames.append(np.asarray(m, np.uint8))
+    return np.stack(frames) if frames else np.zeros((0, H, W), np.uint8)
+
+
+def label_frames(shape, dtype, seed=0):
+    """Weights for hedm_label: an integer type over its whole range, or a
+    float type positive over ~10 decades (~7 in float16), where the order
+    of a float64 sum shows."""
+    rng = np.random.default_rng(seed)
+    dtype = np.dtype(dtype)
+    if dtype.kind in "iu":
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, shape,
+                            endpoint=True).astype(dtype)
+    span = 8.0 if dtype.itemsize < 4 else 12.0
+    return np.exp(rng.uniform(-span, span, shape)).astype(dtype)
+
 #: flash_attention cases ``(B, S, H, KV, hd, causal, window)``: the shapes
 #: of tests/test_kernels.py, then ragged S (not a multiple of any tile) with
 #: the head dims of zamba2 (112) and danube3 (120), and a bidirectional

@@ -9,13 +9,14 @@ profiler), with ``repro_torch.core.telemetry.recording`` current around
 each call of the program. From the program's spans and the device trace it
 reports:
 
-* the seconds of each span name, and the shares the pending per-layer
-  metrics would read (``stage1.index`` over ``stage1.reduce_frames``, ...);
+* the seconds of each span name, and each stage-1 child's share of
+  ``stage1.reduce_frames`` (on the card ``label`` and ``unpack``, on the
+  host ``index``, ``labels`` and ``centroids``);
 * each idle gap of the card named by the innermost span covering its
   midpoint: a program span, else the harness's request or ``wait``, else
   ``harness``;
 * the clock check: every ``hedm_reduce`` kernel starts after its call's
-  ``stage1.filter`` span opens, every copy to the host lies inside
+  ``stage1.filter`` span opens, every copy to the host lies inside a
   ``stage1.d2h`` and every copy to the card inside ``stage1.h2d`` (the
   smallest margins, in us; a negative margin is a misalignment);
 * the CUDA runtime calls (``cudaStreamSynchronize``, ...) by the program
@@ -156,12 +157,16 @@ def clock_check(trace, program):
                 trace.t0 <= root.t_start and root.t_end <= trace.t1):
             continue
         kids = {k.name: k for k in program.children(root)}
+        d2hs = [k for k in program.children(root) if k.name == "stage1.d2h"]
         mine = [op for op in ops if root.t_start <= op[2] <= root.t_end]
         for name, kind, a, b in mine:
             if kind == "kernel" and "hedm_reduce" in name:
                 k1.append((a - kids["stage1.filter"].t_start) * 1e6)
             elif kind == "memcpy" and "DtoH" in name:
-                d2h = kids["stage1.d2h"]
+                # on the card path a call copies twice, each in its own
+                # span: the one opened last before the copy began
+                d2h = max((k for k in d2hs if k.t_start <= a),
+                          key=lambda k: k.t_start, default=d2hs[0])
                 dtoh.append(((a - d2h.t_start) * 1e6,
                              (d2h.t_end - b) * 1e6))
             elif kind == "memcpy" and "HtoD" in name:
@@ -220,8 +225,12 @@ def traced_cell(name, seed, seconds, device):
            "runtime_calls": runtime_calls(dev_tr, index)}
     if name.endswith("frame1"):
         root = spans["stage1.reduce_frames"]
-        for part in ("index", "labels", "centroids", "h2d", "filter", "d2h"):
-            out[f"{part}_share"] = 100 * spans[f"stage1.{part}"] / root
+        # the card path records label and unpack, the host path index,
+        # labels and centroids
+        for part in ("index", "labels", "centroids", "label", "unpack",
+                     "h2d", "filter", "d2h"):
+            if f"stage1.{part}" in spans:
+                out[f"{part}_share"] = 100 * spans[f"stage1.{part}"] / root
         c = out["counters"]
         out["h2d_bytes_per_frame_MiB"] = (c["stage1.h2d_bytes"]
                                           / c["stage1.frames"] / 2 ** 20)
@@ -229,7 +238,8 @@ def traced_cell(name, seed, seconds, device):
         out["device_s"] = {
             k: sum(s.attrs["device_s"] for s in program_tr.spans
                    if s.name == k and trace.t0 <= s.t_start <= trace.t1)
-            for k in ("stage1.h2d", "stage1.filter", "stage1.d2h")}
+            for k in ("stage1.h2d", "stage1.filter", "stage1.label",
+                      "stage1.d2h")}
     else:
         root = spans["stage2.fit_grid"]
         for part in ("jacobian", "solve", "residual"):

@@ -3,8 +3,12 @@
 The configurations state float32 (stage 1's filter; stage 2 with TF32
 off). The control runs stage 1 in bfloat16 and stage 2 with every
 product's operands rounded to TF32, and the check must find it not
-correct. ``calibrate.py --control`` runs it on the chip; the tests run it
-at a small size.
+correct. A served model's configuration states bfloat16 weights: its
+control need not decode, so the program serves the window and the check
+reads, at each position of the same prompts and served tokens, the gap of
+the token that the reference on weights rounded to float8 e4m3 puts first
+(``lm_control``; ``reference/lm.py``). ``calibrate.py --control`` runs it
+on the chip; the tests run it at a small size.
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ class Reduced:
 
 class Control:
     """Stage 1 and stage 2 of the reference, one precision down, with the
-    program's interface."""
+    program's interface; for a served model, the program's session with
+    the check's reading turned to the control's."""
+    lm_control = True
 
     def __init__(self, device: torch.device, config: Dict):
         self.device = device
@@ -45,3 +51,9 @@ class Control:
                  theta0: torch.Tensor, iters: int) -> torch.Tensor:
         return fit.fit_blocks(y_obs, gvec, theta0, iters, self.damping,
                               tf32=True)
+
+    def serve_session(self, config: Dict, weights, batch_slots: int,
+                      capacity: int):
+        from portbench.program import Program
+        return Program(self.device).serve_session(config, weights,
+                                                  batch_slots, capacity)

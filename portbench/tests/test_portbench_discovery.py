@@ -1,18 +1,13 @@
 """Discovery by file name, and ``BENCHMARK.json`` against the contract it
 is written to: every cell, configuration, mix, loop and metric is a file
-of its own that the harness finds by the name ``BENCHMARK.json`` gives.
-The stage-1 entries kept for a later benchmark PR are held to the same
-rules, but for their unset bound."""
+of its own that the harness finds by the name ``BENCHMARK.json`` gives."""
 import json
 import re
 
 import pytest
 
 from portbench import harness
-from portbench_entries import bench_with_stage1
-
 BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-BENCHES = {"committed": BENCH, "with_stage1": bench_with_stage1()}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 LINE = re.compile(r"^[^\n\t]{1,200}$")
@@ -48,9 +43,8 @@ def test_end_to_end_bounds():
         assert 0.01 <= m["bound"] <= 0.25
 
 
-@pytest.mark.parametrize("which", BENCHES)
-def test_names_units_and_lines(which):
-    bench = BENCHES[which]
+def test_names_units_and_lines():
+    bench = BENCH
     for entry in bench["configs"] + bench["workloads"] + metrics(bench):
         assert NAME.match(entry["name"]), entry["name"]
     for w in bench["workloads"]:
@@ -71,9 +65,8 @@ def test_names_units_and_lines(which):
     assert len(names) == len(set(names))
 
 
-@pytest.mark.parametrize("which", BENCHES)
-def test_every_cell_reports_setup_another_end_to_end_and_a_layer(which):
-    bench = BENCHES[which]
+def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
+    bench = BENCH
     for cell in cells(bench):
         found = harness.find_cell(cell, bench).metrics
         kinds = [m["kind"] for m in found]
@@ -81,9 +74,8 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer(which):
         assert kinds.count("end_to_end") >= 2 and "per_layer" in kinds
 
 
-@pytest.mark.parametrize("which", BENCHES)
-def test_per_layer_metrics_move_what_their_cells_report(which):
-    bench = BENCHES[which]
+def test_per_layer_metrics_move_what_their_cells_report():
+    bench = BENCH
     e2e = {m["name"]: m for m in bench["end_to_end"]}
     for m in bench["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer",
@@ -92,7 +84,7 @@ def test_per_layer_metrics_move_what_their_cells_report(which):
             assert cell in e2e[m["moves"]].get("workloads", cells(bench))
 
 
-@pytest.mark.parametrize("metric", metrics(BENCHES["with_stage1"]),
+@pytest.mark.parametrize("metric", metrics(BENCH),
                          ids=lambda m: m["name"])
 def test_every_metric_has_a_reader_that_declares_it(metric):
     mod = harness.find_module("metrics", metric["name"])
@@ -102,9 +94,9 @@ def test_every_metric_has_a_reader_that_declares_it(metric):
         assert mod.LAYER == metric["layer"]
 
 
-@pytest.mark.parametrize("cell", cells(BENCHES["with_stage1"]))
+@pytest.mark.parametrize("cell", cells(BENCH))
 def test_every_cell_finds_its_files(cell):
-    bench = BENCHES["with_stage1"]
+    bench = BENCH
     c = harness.find_cell(cell, bench)
     entry = next(w for w in bench["workloads"] if w["name"] == cell)
     assert c.config["name"] == entry["config"]
@@ -112,7 +104,7 @@ def test_every_cell_finds_its_files(cell):
     assert c.limits and all(v >= 0 for v in c.limits.values())
 
 
-@pytest.mark.parametrize("config", BENCHES["with_stage1"]["configs"],
+@pytest.mark.parametrize("config", BENCH["configs"],
                          ids=lambda c: c["name"])
 def test_configs_are_files_of_their_own(config):
     path = harness.ROOT / config["file"]
@@ -120,7 +112,7 @@ def test_configs_are_files_of_their_own(config):
     data = json.loads(path.read_text())
     assert data["name"] == config["name"]
     assert data["reduced"] == config["reduced"] == []
-    files = [c["file"] for c in BENCHES["with_stage1"]["configs"]]
+    files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))
 
 
@@ -133,7 +125,7 @@ def test_a_quantity_reader_serves_every_metric_of_it():
 
 def test_a_cell_missing_from_the_benchmark_is_not_found():
     with pytest.raises(KeyError):
-        harness.find_cell("nf-f32.stage1")
+        harness.find_cell("nf-u16.live")
 
 
 def test_every_file_is_named_from_name_characters():

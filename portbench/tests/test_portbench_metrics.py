@@ -4,12 +4,11 @@ clock, and the device readings from a trace."""
 import pytest
 
 from portbench import harness, roofline
-from portbench_entries import bench_with_stage1
 from portbench.trace import DeviceTrace, union
 
 
 def _run(requests, cell_name="nf-f32.stage1", **kw):
-    cell = harness.find_cell(cell_name, bench_with_stage1())
+    cell = harness.find_cell(cell_name)
     run = harness.Run(cell=cell, seconds=10.0,
                       setup_s=12.5, **kw)
     run.requests = [harness.Request(*r) for r in requests]

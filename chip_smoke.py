@@ -50,7 +50,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    causal with v zero-padded from 128 as the model pads it, in bf16 at the
    eight lengths, 2048 and the tile edges 127, 128 and 129, each on
    ``flash_fwd_tc`` (1e-3 + 2^-7 |ref|), and in float32 on ``flash_fwd`` at
-   127, 129 and 1024 (3e-5). ``flash_attention`` also at internvl2-2b's
+   127, 129 and 1024 (3e-5); and at kimi-linear-48b-a3b's NoPE MLA prefill
+   widths, (1, S, 32, 32, hd 192) causal, v zero-padded from 128, in bf16
+   at the eight lengths and ``KIMI_LENGTHS`` (the tile edges 127, 128,
+   129, and lengths of kimi-linear-48b.decode256's prompts, 512-2,048),
+   each on ``flash_fwd_tc`` (1e-3 + 2^-7 |ref|). ``flash_attention`` also at internvl2-2b's
    prefill widths, (1, S, 16 heads, 8 kv heads, hd 128) bf16 causal, at
    256 image tokens + each of the eight served text lengths, at 256 + 1024
    (phase 10's prefill) and at 2048;
@@ -126,6 +130,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    in bf16), once the qwen3-moe session is freed: ``flash_attention``
    launched 8 x 27 times at hd 192, every launch on ``flash_fwd_tc``, and
    no other kernel.
+   8e. The same for kimi-linear-48b-a3b at full width and depth (27
+   layers: 20 KDA in plain PyTorch, 7 NoPE MLA; experts 0-63 of 256 of
+   1024 held, as one card of a four-card expert-parallel deployment, top
+   8 sigmoid-routed, 1 shared; 13.8 B parameters in bf16),
+   once the deepseek session is freed: ``flash_attention`` launched 8 x 7
+   times at hd 192, every launch on ``flash_fwd_tc``, and no other kernel.
 9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
    paths' shapes (S = L = 2048, bf16; the decay float32; attention at
    zamba2's (32, 32, 112), qwen3-moe's (32, 4, 128) and deepseek's (16,
@@ -246,7 +256,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and the ctypes launch, at (1, 128, 1, 1, 64) bf16.
    Its seconds are printed as ``[main] phases (s), phase 14``.
 
-Each main path (4, 4b, 8, 8b, 8c, 8d, 10, 11, 11b, 12a and 13d) runs with
+Each main path (4, 4b, 8, 8b, 8c, 8d, 8e, 10, 11, 11b, 12a and 13d) runs with
 every launch count set to 0 just before and read just after. The last three lines of standard
 output are the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -422,6 +432,11 @@ PATH_FLASH = (1, 2048, 32, 32, 112, True, 0)
 QWEN_FLASH = (1, 2048, 32, 4, 128, True, 0)      # qwen3-moe-30b-a3b prefill
 DEEPSEEK_FLASH = (1, 2048, 16, 16, 192, True, 0)  # deepseek-v2-lite MLA
 MLA_V = 128                    # deepseek's v width, zero-padded to 192
+KIMI_FLASH = (1, 2048, 32, 32, 192, True, 0)  # kimi-linear's NoPE MLA
+#: kimi-linear's K2 lengths beyond the main path's: the 128-row tile's
+#: edges, then lengths inside kimi-linear-48b.decode256's prompts (512 to
+#: 2,048, log-uniform), ragged in the last tile
+KIMI_LENGTHS = (127, 128, 129, 512, 777, 1000, 1409, 1999, 2048)
 INTERNVL_FLASH = (1, 2048, 16, 8, 128, True, 0)   # internvl2-2b prefill
 HUBERT_FLASH = (1, 2048, 16, 16, 80, False, 0)    # hubert-xlarge encoder
 IMAGE_TOKENS = 256             # internvl2-2b's image prefix
@@ -577,6 +592,27 @@ def scan_err(torch, ms, x, dt, A, Bm, Cm, chunk):
     return err
 
 
+def check_kimi_flash(np, torch, dev, lengths):
+    """``flash_attention`` at kimi-linear-48b-a3b's MLA prefill widths,
+    (1, S, 32, 32, 192) causal with v zero-padded from ``MLA_V`` (NoPE:
+    q and k hold their unrotated 64 columns), bf16 at the main path's
+    prompt ``lengths`` and ``KIMI_LENGTHS``, each call on ``flash_fwd_tc``
+    within 1e-3 + 2^-7 |ref|; returns the max |kernel - plain|."""
+    from repro_torch.kernels import flash_attention as fa
+    *kw, causal, win = KIMI_FLASH
+    todo = sorted(set(lengths) | set(KIMI_LENGTHS))
+    err = 0.0
+    for n, S in enumerate(todo):
+        q, k, v = mla_flash_inputs(np, torch, (kw[0], S, *kw[2:]),
+                                   "bfloat16", dev, seed=1000 + n)
+        err = max(err, flash_err(torch, fa, q, k, v, causal, win, tc=True))
+    print(f"[check] flash_attention at kimi-linear's MLA widths (1, S, 32, "
+          f"32, 192) causal, v zero-padded from {MLA_V}: bf16 at S = "
+          f"{', '.join(map(str, todo))}, each on flash_fwd_tc, within 1e-3 "
+          f"+ 2^-7 |ref| (max |diff| {err:.3g})", flush=True)
+    return err
+
+
 def check_lm_kernels(np, torch, dev, lengths):
     """Phase 3 for flash_attention, mamba2_scan and rwkv6_wkv, with the
     main paths' shapes at their prompt ``lengths``; returns their max
@@ -619,7 +655,8 @@ def check_lm_kernels(np, torch, dev, lengths):
         ferr = max(ferr, flash_err(torch, fa, q, k, v, True, 0))
         if fa.flash_attention.launches_tc != before:
             raise AssertionError("float32 at hd 192 took flash_fwd_tc")
-    errs["flash_attention"] = max(errs["flash_attention"], derr, ferr)
+    errs["flash_attention"] = max(errs["flash_attention"], derr, ferr,
+                                  check_kimi_flash(np, torch, dev, lengths))
     print(f"[check] flash_attention at deepseek-v2-lite's MLA widths (1, S, "
           f"16, 16, 192) causal, v zero-padded from {MLA_V}: bf16 at S = "
           f"{', '.join(str(s[1]) for s in mla_path)}, each on flash_fwd_tc, "
@@ -940,6 +977,65 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
           f"(< 5e-3){note}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     del params
+
+
+def serve_main_path(torch, dev, arch, want, prompts, zero_counts, counted,
+                    tensor_core, **serve):
+    """One LM main path at full width and depth, its launch counts set
+    to 0 just before and read just after; ``want(cfg, n)`` gives the counts
+    it must show, every launch of a kernel with a tensor-core variant
+    on that variant. Returns the counts and those of the tensor-core
+    kernels. ``serve`` goes on to ``launch.serve.main``."""
+    from repro_torch.launch import serve as launch_serve
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    served = launch_serve.main(arch=arch, device=dev, **serve)
+    serve_s = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counted}
+    tc = {fn.__name__: fn.launches_tc for fn in tensor_core}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, ph = served["cfg"], served["phases"]
+    n_req = len(served["finished"])
+    print(f"[lm] {serve_s:.2f}s wall for {cfg.name} ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.param_dtype}): init "
+          f"{ph['init_s']:.2f}s, session {ph['serve_s']:.2f}s; decode "
+          f"{ph['decode_tokens_per_s']:.2f} tokens/s; launches "
+          f"{json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    print("[lm] phases: " + json.dumps(ph), flush=True)
+    if counts != want(cfg, n_req):
+        raise AssertionError(f"the {cfg.name} path launched {counts}, "
+                             f"expected {want(cfg, n_req)}")
+    print(f"[lm] tensor-core launches on the {cfg.name} path: "
+          f"{json.dumps(tc)}", flush=True)
+    if any(n != counts[name] for name, n in tc.items()):
+        raise AssertionError(f"the {cfg.name} path: {tc} of {counts} "
+                             f"launches on the tensor-core kernels")
+    if sorted(p["tokens"] for p in ph["prefill"]) != sorted(
+            len(p) for p in prompts):
+        raise AssertionError(f"the {cfg.name} path served other prompt "
+                             f"lengths than phase 3 checked")
+    if ph["nonfinite_logits"] or n_req != 8 or any(
+            len(r.generated) != 32 for r in served["finished"]):
+        raise AssertionError(f"{cfg.name} path: {ph['nonfinite_logits']}"
+                             f" non-finite logits, {n_req} requests "
+                             f"finished")
+    profile_serving(torch, served["session"], prompts)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, tc
+
+
+def kimi_main_path(serve_path):
+    """Phase 8e through ``serve_path(arch, want, **serve)`` (phase 8's),
+    holding experts 0-63 of 256 as one card of the four-card deployment
+    does (all 256 are 96 GB): every prefill launches ``flash_attention``
+    once an MLA layer, on ``flash_fwd_tc``, and no other counted kernel
+    runs."""
+    return serve_path("kimi-linear-48b-a3b", lambda cfg, n: {
+        "hedm_reduce": 0, "flash_attention": n * cfg.layer_mixers.count(
+            "attn"), "mamba2_scan": 0, "rwkv6_wkv": 0}, held_experts=64)
 
 
 def profile_serving(torch, sess, prompts):
@@ -2607,75 +2703,39 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     gc.collect()
     torch.cuda.empty_cache()
 
-    def serve_main_path(arch, want):
-        """One LM main path at full width and depth, its launch counts set
-        to 0 just before and read just after; ``want(cfg)`` gives the counts
-        it must show, every launch of a kernel with a tensor-core variant
-        on that variant. Returns the counts and those of the tensor-core
-        kernels."""
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        served = launch_serve.main(arch=arch, device=dev)
-        serve_s = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in counted}
-        tc = {fn.__name__: fn.launches_tc for fn in tensor_core}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        cfg, ph = served["cfg"], served["phases"]
-        n_req = len(served["finished"])
-        print(f"[lm] {serve_s:.2f}s wall for {cfg.name} ({cfg.n_layers} "
-              f"layers, d_model {cfg.d_model}, {cfg.param_dtype}): init "
-              f"{ph['init_s']:.2f}s, session {ph['serve_s']:.2f}s; decode "
-              f"{ph['decode_tokens_per_s']:.2f} tokens/s; launches "
-              f"{json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
-        print("[lm] phases: " + json.dumps(ph), flush=True)
-        if counts != want(cfg, n_req):
-            raise AssertionError(f"the {cfg.name} path launched {counts}, "
-                                 f"expected {want(cfg, n_req)}")
-        print(f"[lm] tensor-core launches on the {cfg.name} path: "
-              f"{json.dumps(tc)}", flush=True)
-        if any(n != counts[name] for name, n in tc.items()):
-            raise AssertionError(f"the {cfg.name} path: {tc} of {counts} "
-                                 f"launches on the tensor-core kernels")
-        if sorted(p["tokens"] for p in ph["prefill"]) != sorted(
-                len(p) for p in prompts):
-            raise AssertionError(f"the {cfg.name} path served other prompt "
-                                 f"lengths than phase 3 checked")
-        if ph["nonfinite_logits"] or n_req != 8 or any(
-                len(r.generated) != 32 for r in served["finished"]):
-            raise AssertionError(f"{cfg.name} path: {ph['nonfinite_logits']}"
-                                 f" non-finite logits, {n_req} requests "
-                                 f"finished")
-        profile_serving(torch, served["session"], prompts)
-        del served
-        gc.collect()
-        torch.cuda.empty_cache()
-        return counts, tc
+    def serve_path(arch, want, **serve):
+        return serve_main_path(torch, dev, arch, want, prompts, zero_counts,
+                               counted, tensor_core, **serve)
 
     # 8. the LM main path: zamba2-7b serving at full width and depth
-    lm_launches, lm_tc = serve_main_path("zamba2-7b", lambda cfg, n: {
+    lm_launches, lm_tc = serve_path("zamba2-7b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": n * (cfg.n_layers
                                                   // cfg.attn_every),
         "mamba2_scan": n * cfg.n_layers, "rwkv6_wkv": 0})
     # 8b. rwkv6-3b serving at full width and depth, the zamba2 session freed
-    rw_launches, rw_tc = serve_main_path("rwkv6-3b", lambda cfg, n: {
+    rw_launches, rw_tc = serve_path("rwkv6-3b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": 0, "mamba2_scan": 0,
         "rwkv6_wkv": n * cfg.n_layers})
     lm_launches["rwkv6_wkv"] = rw_launches["rwkv6_wkv"]
     lm_tc["rwkv6_wkv"] = rw_tc["rwkv6_wkv"]
     # 8c. qwen3-moe-30b-a3b serving at full width and depth, the rwkv6
     # session freed
-    qw_launches, qw_tc = serve_main_path("qwen3-moe-30b-a3b", lambda cfg, n: {
+    qw_launches, qw_tc = serve_path("qwen3-moe-30b-a3b", lambda cfg, n: {
         "hedm_reduce": 0, "flash_attention": n * cfg.n_layers,
         "mamba2_scan": 0, "rwkv6_wkv": 0})
     # 8d. deepseek-v2-lite-16b serving at full width and depth, the
     # qwen3-moe session freed: MLA prefill on K2 at hd 192
-    ds_launches, ds_tc = serve_main_path(
+    ds_launches, ds_tc = serve_path(
         "deepseek-v2-lite-16b", lambda cfg, n: {
             "hedm_reduce": 0, "flash_attention": n * cfg.n_layers,
             "mamba2_scan": 0, "rwkv6_wkv": 0})
-    # the kernels line counts the launches of the three attention paths
-    for n, n_tc in ((qw_launches, qw_tc), (ds_launches, ds_tc)):
+    # 8e. kimi-linear-48b-a3b serving at full width and depth, the
+    # deepseek session freed: its 7 NoPE MLA layers' prefill on K2 at hd
+    # 192, its 20 KDA layers in plain PyTorch
+    km_launches, km_tc = kimi_main_path(serve_path)
+    # the kernels line counts the launches of the four attention paths
+    for n, n_tc in ((qw_launches, qw_tc), (ds_launches, ds_tc),
+                    (km_launches, km_tc)):
         lm_launches["flash_attention"] += n["flash_attention"]
         lm_tc["flash_attention"] += n_tc["flash_attention"]
 

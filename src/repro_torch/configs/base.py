@@ -25,6 +25,11 @@ class MoEConfig:
     router_dtype: str = "float32"      # router math dtype (stability)
     first_k_dense: int = 0             # first k layers use a dense FFN instead (deepseek)
     dense_d_ff: int = 0                # d_ff of those dense layers
+    scoring: str = "softmax"           # softmax | sigmoid (with a selection-only bias)
+    routed_scaling: float = 1.0        # routed experts' weights scaled by this
+    held_experts: int = 0              # experts held here (0 => all), from held_from:
+    held_from: int = 0                 # an expert-parallel rank's share at world size 1
+    dropless: bool = False             # inference: capacity = the largest load (read on the host)
 
 
 @dataclass(frozen=True)
@@ -35,6 +40,17 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    rope: bool = True                  # False => q_rope and k_rope not rotated (NoPE)
+
+
+@dataclass(frozen=True)
+class KDAConfig:
+    """Kimi Delta Attention (arXiv:2510.26692): a gated delta rule with a
+    decay per key channel, after a short causal conv on q, k and v."""
+    num_heads: int = 32
+    head_dim: int = 128                # K = V
+    conv_size: int = 4                 # the decay's and the gate's low rank is head_dim
+    chunk: int = 64                    # chunk length of the prefill's closed form
 
 
 @dataclass(frozen=True)
@@ -89,9 +105,11 @@ class ModelConfig:
     block_pattern: str = "uniform"     # uniform | zamba_hybrid
     attn_every: int = 0                # zamba: shared attn block every k mamba blocks
     block_kind: str = "attn_mlp"       # attn_mlp | mamba2 | rwkv6
+    layer_mixers: Tuple[str, ...] = () # per layer "kda" | "attn" (empty => all attn)
     # --- sub-configs ---
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    kda: Optional[KDAConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
@@ -191,7 +209,13 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         kw["mla"] = MLAConfig(
             kv_lora_rank=32, q_lora_rank=0,
             qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+            rope=cfg.mla.rope,
         )
+    if cfg.layer_mixers:
+        kw["layer_mixers"] = cfg.layer_mixers[:kw["n_layers"]]
+    if cfg.kda is not None:
+        kw["kda"] = dataclasses.replace(cfg.kda, num_heads=4, head_dim=32,
+                                        chunk=16)
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=32)
     if cfg.rwkv is not None:

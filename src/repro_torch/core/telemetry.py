@@ -16,7 +16,9 @@ stamps SIMULATED seconds (its fabric's tracer, ``fabric.attach_tracer``);
 the HEDM hot path (`repro_torch.hedm.pipeline`'s ``reduce_frames`` and
 ``fit_grid``) stamps ``time.perf_counter()`` seconds on track ``host``
 into the tracer that :func:`recording` makes current, and puts the
-device seconds of its CUDA-event-timed phases on the spans as ``device_s``.
+device seconds of its CUDA-event-timed phases on the spans as ``device_s``;
+so does the serving path (`repro_torch.serve.engine.ServeSession.step`,
+with :class:`DeviceMarks` a layer inside its decode).
 
 The contract carried over from the fault and QoS layers: telemetry is
 STRICTLY additive. Every instrumentation site in the fabric guards on
@@ -392,6 +394,48 @@ def recording(tracer: TracerLike) -> Iterator[TracerLike]:
         yield tracer
     finally:
         _CURRENT.reset(token)
+
+
+def device_event(device: Any) -> Any:
+    """A CUDA event recorded now on ``device``'s current stream, or None
+    off a card."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class DeviceMarks:
+    """Back-to-back spans on ``time.perf_counter()``, each closed by
+    :meth:`mark` and named ``prefix + name``, under the tracer's innermost
+    open region. On a card each carries ``device_s``, the seconds between
+    CUDA events recorded at its two ends, left pending until
+    :func:`settle_device_s` reads it once the device has passed them."""
+
+    def __init__(self, tracer: Tracer, prefix: str, device: Any):
+        import time
+        self.tracer, self.prefix, self.device = tracer, prefix, device
+        self._clock = time.perf_counter
+        self._last = (self._clock(), device_event(device))
+
+    def mark(self, name: str, **attrs: Any) -> Span:
+        now = (self._clock(), device_event(self.device))
+        (a, ev_a), self._last = self._last, now
+        pending = (ev_a, now[1]) if ev_a is not None else None
+        return self.tracer.span(self.prefix + name, a, now[0],
+                                device_s=pending, **attrs)
+
+
+def settle_device_s(tracer: TracerLike, since: int = 0) -> None:
+    """Turn the pending ``device_s`` (a pair of CUDA events) of the spans
+    recorded from index ``since`` on into seconds. Call it after a copy to
+    the host has waited for the device; it does not synchronise."""
+    for sp in tracer.spans[since:]:
+        ev = sp.attrs.get("device_s")
+        if isinstance(ev, tuple):
+            sp.attrs["device_s"] = ev[0].elapsed_time(ev[1]) * 1e-3
 
 
 # -- Chrome trace-event export ---------------------------------------------

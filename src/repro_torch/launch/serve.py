@@ -11,7 +11,10 @@ GB in bf16) the same way; one 80 GB card holds it whole. ``--arch
 deepseek-v2-lite-16b`` serves MLA attention (16 heads, q and k 192 wide, a
 latent cache of 512 + 64 per token) over 64 experts of 1408, top 6, with 2
 shared experts and a dense first layer (27 layers; 15.7 B parameters, 31.4
-GB in bf16).
+GB in bf16). ``--arch kimi-linear-48b-a3b --held-experts 64`` serves
+Kimi-Linear (20 KDA and 7 NoPE MLA layers) as one card of a four-card
+expert-parallel deployment: it holds experts 0-63 of 256 and computes
+their part (13.8 B parameters, 27.6 GB in bf16; all 256 would not fit).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
@@ -32,8 +35,9 @@ GB in bf16).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -63,7 +67,8 @@ def main(arch: str = "zamba2-7b", smoke: bool = False, requests: int = 8,
          slots: int = 4,
          prompt_len: Union[int, Sequence[int]] = (256, 2048),
          max_new: int = 32, capacity: int = 4096, seed: int = 0,
-         device: DeviceLike = "cuda", verbose: bool = True) -> Dict:
+         device: DeviceLike = "cuda", verbose: bool = True,
+         held_experts: Optional[int] = None) -> Dict:
     """Serve the ``requests`` prompts of :func:`draw_prompts` once and
     return ``finished`` (the requests, in order of completion), ``cfg``,
     ``session`` (the drained :class:`ServeSession`, its weights and caches
@@ -73,11 +78,15 @@ def main(arch: str = "zamba2-7b", smoke: bool = False, requests: int = 8,
     ``decode_tokens``
     (tokens over all slots), ``decode_s``, ``decode_tokens_per_s`` and
     ``nonfinite_logits`` (count over every logit the session computed).
-    Host seconds, each ending with the device done."""
+    Host seconds, each ending with the device done. ``held_experts``
+    holds that many routed experts, from the first, of a MoE model."""
     dev = resolve_device(device)
     say = print if verbose else (lambda *a, **k: None)
     cfg = get_smoke_config(canonical(arch)) if smoke \
         else get_config(canonical(arch))
+    if held_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, held_experts=held_experts, held_from=0))
 
     def sync() -> float:
         if dev.type == "cuda":
@@ -143,6 +152,8 @@ def cli() -> None:
     ap.add_argument("--capacity", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--held-experts", type=int, default=None,
+                    help="routed experts this card holds, from the first")
     a = ap.parse_args()
     if len(a.prompt_len) not in (1, 2):
         ap.error("--prompt-len takes one length or LO HI")
@@ -150,7 +161,7 @@ def cli() -> None:
                slots=a.slots,
                prompt_len=(a.prompt_len[0], a.prompt_len[-1]),
                max_new=a.max_new, capacity=a.capacity, seed=a.seed,
-               device=a.device)
+               device=a.device, held_experts=a.held_experts)
     for r in sorted(out["finished"], key=lambda r: r.request_id)[:4]:
         print(f"  req {r.request_id}: {r.generated}")
 

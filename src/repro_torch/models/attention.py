@@ -10,7 +10,9 @@ always ran its einsum path (``grouped_sdpa``); the port takes the kernel in
 both. Decode attends over the cache with the plain ``grouped_sdpa``, as the
 reference does outside Pallas, and writes the cache in place.
 
-MLA prefill decompresses per-head keys and values from the latent and runs
+MLA (with ``mla.rope`` off, NoPE: the rope parts of q and k are not
+rotated, as Kimi-Linear's ``mla_use_nope``) prefill decompresses per-head
+keys and values from the latent and runs
 them through the same kernel at one head dim for q, k and v, as the Pallas
 kernel takes them: q = [q_nope, q_rope], k = [k_nope, k_rope] (the rope key
 shared by every head), v zero-padded to that width, and the padded columns
@@ -513,24 +515,30 @@ def attention_prefill(params, cfg: ModelConfig, x: torch.Tensor,
 
 def _mla_q(params, cfg: ModelConfig, x: torch.Tensor,
            positions: torch.Tensor):
-    """(q_nope, q_rope) (B,S,H,·), the rope applied to q_rope."""
+    """(q_nope, q_rope) (B,S,H,·), the rope applied to q_rope (unless the
+    config's ``mla.rope`` is off)."""
     m = cfg.mla
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(
         B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
                              dim=-1)
+    if not m.rope:                       # NoPE (Kimi-Linear)
+        return q_nope, q_rope
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
 def _mla_latent(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor):
     """Down-project to (c_kv (B,S,r), k_rope (B,S,rope)): c_kv rms-normed,
-    k_rope rotated and shared by every head."""
+    k_rope rotated (unless ``mla.rope`` is off) and shared by every
+    head."""
     m = cfg.mla
     c_kv, k_rope = (x @ params["w_dkv"]).split(
         [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = rmsnorm_nohead(c_kv, params["kv_norm"], cfg.norm_eps)
+    if not m.rope:                       # NoPE (Kimi-Linear)
+        return c_kv, k_rope
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope

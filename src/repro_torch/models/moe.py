@@ -2,16 +2,26 @@
 
 Counterpart of the single-device path of ``repro.models.moe``:
 
-  * token-choice routing (top-k of an fp32 softmax) with a per-expert
+  * token-choice routing (top-k of an fp32 softmax; or, with
+    ``scoring="sigmoid"``, of fp32 sigmoid scores plus a per-expert
+    correction bias that only selects, the weights renormalised over the
+    top-k and scaled by ``routed_scaling``) with a per-expert
     capacity C = ``expert_capacity``; tokens over capacity are dropped
     (their residual passes through), relaxed to ``INFERENCE_CAPACITY_FACTOR``
-    at inference;
+    at inference, or with ``dropless`` (a sigmoid router with a selection
+    bias loads some experts past that factor) set at inference to the
+    largest load of the call, read on the host, so no token is dropped;
   * each expert picks the tokens routed to it by sequence priority (the
     earliest first): a top-C over ``-position`` where assigned, ``-inf``
     elsewhere, gives a (B,E,C) index tensor and its ``valid`` mask;
   * the tokens are gathered into (B,E,C,D), the three expert products run
     as batched matmuls over the experts, and a scatter-add
     (``index_add_``) combines them back into (B,S,D).
+
+An expert layer may hold a share of the experts (``held_experts`` from
+``held_from``: an expert-parallel rank's share at world size 1). It routes
+over all of them and computes only its own experts' part of the output,
+which goes on as the layer's output; nothing stands in for the others.
 
 The reference computes these with XLA ops, outside any Pallas kernel, so
 the port uses PyTorch's ``topk``, indexing, ``bmm`` and ``index_add_``.
@@ -65,10 +75,11 @@ def _stacked_init(gen: Optional[torch.Generator], n: int, in_dim: int,
 
 
 class MoE(Params):
-    """``router`` (D, E) float32 whatever the parameter type; the experts as
-    stacked ``w_gate``/``w_up`` (E, D, F) and ``w_down`` (E, F, D); and
-    ``shared`` (a SwiGLU MLP of ``shared_d_ff``) when the config has shared
-    experts."""
+    """``router`` (D, E) float32 whatever the parameter type, and with
+    sigmoid scoring its selection bias ``router_bias`` (E,) float32; the
+    held experts as stacked ``w_gate``/``w_up`` (E held, D, F) and
+    ``w_down`` (E held, F, D); and ``shared`` (a SwiGLU MLP of
+    ``shared_d_ff``) when the config has shared experts."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device, dtype: Optional[torch.dtype] = None):
@@ -76,24 +87,44 @@ class MoE(Params):
         moe = cfg.moe
         dtype = dtype or dt(cfg.param_dtype)
         d, E, f = cfg.d_model, moe.num_experts, moe.expert_d_ff
+        El = held(moe)[1]
         self.router = dense_init(gen, d, E, torch.float32, device)
-        self.w_gate = _stacked_init(gen, E, d, f, dtype, device)
-        self.w_up = _stacked_init(gen, E, d, f, dtype, device)
-        self.w_down = _stacked_init(gen, E, f, d, dtype, device)
+        if moe.scoring == "sigmoid":
+            self.router_bias = param(torch.zeros((E,), device=device))
+        self.w_gate = _stacked_init(gen, El, d, f, dtype, device)
+        self.w_up = _stacked_init(gen, El, d, f, dtype, device)
+        self.w_down = _stacked_init(gen, El, f, d, dtype, device)
         if moe.num_shared_experts:
             self.shared = MLP(gen, d, moe.shared_d_ff, dtype, device)
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig
+def held(moe: MoEConfig) -> Tuple[int, int]:
+    """(first expert held, experts held): all of them unless the config
+    holds a share."""
+    return moe.held_from, moe.held_experts or moe.num_experts
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig,
+          bias: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router: (combine weights (B,S,E) dense fp32, zero where a token is
     not routed; top-k expert ids (B,S,K); the Switch load-balance loss
-    E * sum_e f_e p_e)."""
+    E * sum_e f_e p_e). With sigmoid scoring the top-k are those of the
+    scores plus ``bias`` (the selection's correction), weighted by the
+    scores alone, and the loss's p_e are the scores normalised."""
     logits = x.float() @ router_w.float()
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_ids = torch.topk(probs, moe.top_k, dim=-1)          # (B,S,K)
+    if moe.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        top_ids = torch.topk(scores + bias, moe.top_k, dim=-1)[1]
+        top_w = scores.gather(-1, top_ids)
+        probs = scores / scores.sum(dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        top_w, top_ids = torch.topk(probs, moe.top_k, dim=-1)      # (B,S,K)
     if moe.norm_topk_prob:
         top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-9)
+    if moe.routed_scaling != 1.0:
+        top_w = top_w * moe.routed_scaling
     onehot = F.one_hot(top_ids, moe.num_experts).float()          # (B,S,K,E)
     dense_w = torch.einsum("bsk,bske->bse", top_w, onehot)
     frac_tokens = onehot.sum(dim=2).mean(dim=(0, 1)) / moe.top_k
@@ -116,12 +147,24 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, ctx=None,
     moe = cfg.moe
     C = expert_capacity(x.shape[1], moe,
                         INFERENCE_CAPACITY_FACTOR if inference else None)
-    dense_w, _, aux = route(params["router"], x, moe)              # (B,S,E)
+    dense_w, _, aux = _routed(params, x, moe)                      # (B,S,E)
+    e0, El = held(moe)
+    if El != moe.num_experts:                # this layer's share of them
+        dense_w = dense_w[..., e0:e0 + El]
+    if inference and moe.dropless and x.shape[1] > C:
+        C = max(1, int((dense_w > 0).sum(1).amax()))
     out = _experts(x, dense_w, params["w_gate"], params["w_up"],
                    params["w_down"], C)
     if moe.num_shared_experts:
         out = out + mlp(params["shared"], x)
     return out, aux
+
+
+def _routed(params, x: torch.Tensor, moe: MoEConfig):
+    """:func:`route` with the layer's selection bias where it has one."""
+    if "router_bias" in params:
+        return route(params["router"], x, moe, params["router_bias"])
+    return route(params["router"], x, moe)
 
 
 def _experts(x: torch.Tensor, dense_w: torch.Tensor, w_gate: torch.Tensor,
@@ -172,6 +215,9 @@ def _moe_ffn_sharded(params, cfg: ModelConfig, x: torch.Tensor, ctx,
     summed over tp, and the aux averaged over every mesh axis."""
     moe = cfg.moe
     E = moe.num_experts
+    if held(moe)[1] != E:
+        raise ValueError("an expert layer that holds a share of the experts "
+                         "runs at world size 1 only")
     if E % ctx.tp_size:
         raise ValueError(f"{E} experts do not split over {ctx.tp_size} tp "
                          f"ranks: the expert-parallel dispatch needs them to")
@@ -192,7 +238,7 @@ def _moe_ffn_sharded(params, cfg: ModelConfig, x: torch.Tensor, ctx,
     def region(h):
         C = expert_capacity(h.shape[1], moe, INFERENCE_CAPACITY_FACTOR
                             if inference else None)
-        dense_w, _, aux = route(params["router"], h, moe)
+        dense_w, _, aux = _routed(params, h, moe)
         out = _experts(h, dense_w[..., e0:e0 + El], wg, wu, wd, C)
         if shared is not None:
             out = out + shared(h)

@@ -9,7 +9,11 @@ caches are lists of per-layer caches. Two patterns:
                         FFN, or MoE FFN when the config has ``moe``, after
                         a ``prefix`` of ``first_k_dense`` dense blocks),
                         ``mamba2`` blocks or ``rwkv6`` blocks (time-mix and
-                        channel-mix, each after its norm).
+                        channel-mix, each after its norm). With
+                        ``layer_mixers`` each ``attn_mlp`` block's mixer is
+                        the attention or KDA (Kimi-Linear), layer by layer,
+                        and so is its cache: a ``KVCache`` or a
+                        ``KDAState``.
   * ``zamba_hybrid`` -- groups of ``attn_every`` Mamba2 blocks, each group
                         followed by the SHARED attention block (weights
                         shared across sites, per-site LoRA deltas on q and
@@ -39,10 +43,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.distributed.sharding import (fsdp_gather, local,
                                               placed_like, tp_part,
                                               tp_whole)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import kda as kda_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
@@ -58,13 +64,14 @@ ZAMBA_LORA_RANK = 64
 # ---------------------------------------------------------------------------
 
 class Block(Params):
-    """One block: Mamba2 mixer, RWKV6 time-mix + channel-mix, or attention
-    + an FFN: ``moe`` when ``use_moe``, else the dense SwiGLU ``mlp`` (of
-    ``moe.dense_d_ff`` in the dense prefix of a MoE config)."""
+    """One block: Mamba2 mixer, RWKV6 time-mix + channel-mix, or a mixer
+    (``attn``, or ``kda`` where ``mixer`` says so) + an FFN: ``moe`` when
+    ``use_moe``, else the dense SwiGLU ``mlp`` (of ``moe.dense_d_ff`` in
+    the dense prefix of a MoE config)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device, dtype: Optional[torch.dtype] = None,
-                 use_moe: bool = False):
+                 use_moe: bool = False, mixer: str = "attn"):
         super().__init__()
         dtype = dtype or dt(cfg.param_dtype)
         if cfg.block_kind == "mamba2":
@@ -76,7 +83,10 @@ class Block(Params):
         if cfg.block_kind == "rwkv6":
             self.mixer = rw.RWKV6(cfg, gen, device, dtype)
             return
-        self.attn = attn_mod.Attention(cfg, gen, device, dtype)
+        if mixer == "kda":
+            self.kda = kda_mod.KDA(cfg, gen, device, dtype)
+        else:
+            self.attn = attn_mod.Attention(cfg, gen, device, dtype)
         if use_moe:
             self.moe = moe_mod.MoE(cfg, gen, device, dtype)
             return
@@ -142,19 +152,25 @@ def block_forward(params, cfg: ModelConfig, x: torch.Tensor,
         return _rwkv_prefill(params, cfg, x, use_kernels, ctx,
                              whole_state=False)[0], zero
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(params["attn"], cfg, h, positions,
-                               use_kernels, ctx)
+    if "kda" in params:
+        x = x + kda_mod.kda_prefill(params["kda"], cfg, h, ctx)[0]
+    else:
+        x = x + attn_mod.attention(params["attn"], cfg, h, positions,
+                                   use_kernels, ctx)
     out, aux = _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
                     inference, ctx)
     return x + out, zero if aux is None else aux
 
 
 def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
-                 cache: Any, ctx=None) -> Tuple[torch.Tensor, Any]:
-    """One-token decode for one block. cache: KVCache | SSMState |
-    RWKVState. Over a mesh (``ctx``) the block's weights are gathered over
-    the fsdp axis first and the cache is this rank's ``DTensor`` blocks
-    (`repro_torch.distributed.sharding.shard_caches`)."""
+                 cache: Any, ctx=None, marks=None
+                 ) -> Tuple[torch.Tensor, Any]:
+    """One-token decode for one block. cache: KVCache | KDAState |
+    SSMState | RWKVState. Over a mesh (``ctx``) the block's weights are
+    gathered over the fsdp axis first and the cache is this rank's
+    ``DTensor`` blocks (`repro_torch.distributed.sharding.shard_caches`).
+    ``marks`` (a recording's ``telemetry.DeviceMarks``) closes a span
+    after the mixer and one after the FFN of an attention or KDA block."""
     params = fsdp_gather(params, cfg, ctx)
     if cfg.block_kind == "mamba2":
         h = rmsnorm(params["norm"], x, cfg.norm_eps)
@@ -169,11 +185,19 @@ def block_decode(params, cfg: ModelConfig, x: torch.Tensor,
                                         ctx, cfg)
         return x + cm, cache._replace(x_cm=placed_like(x_cm, cache.x_cm))
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache,
-                                           ctx)
+    if "kda" in params:
+        out, cache = kda_mod.kda_decode(params["kda"], cfg, h, cache, ctx)
+    else:
+        out, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache,
+                                               ctx)
+    if marks is not None:
+        marks.mark("kda" if "kda" in params else cfg.attention)
     x = x + out
-    return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
-                    True, ctx)[0], cache
+    x = x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
+                 True, ctx)[0]
+    if marks is not None:
+        marks.mark("moe" if "moe" in params else "mlp")
+    return x, cache
 
 
 def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
@@ -190,8 +214,11 @@ def block_prefill(params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.block_kind == "rwkv6":
         return _rwkv_prefill(params, cfg, x, ctx=ctx)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    out, kv = attn_mod.attention_prefill(params["attn"], cfg, h, positions,
-                                         capacity, ctx)
+    if "kda" in params:
+        out, kv = kda_mod.kda_prefill(params["kda"], cfg, h, ctx)
+    else:
+        out, kv = attn_mod.attention_prefill(params["attn"], cfg, h,
+                                             positions, capacity, ctx)
     x = x + out
     return x + _ffn(params, cfg, rmsnorm(params["norm2"], x, cfg.norm_eps),
                     True, ctx)[0], kv
@@ -317,9 +344,10 @@ class Stack(Params):
                  device, dtype: Optional[torch.dtype] = None):
         super().__init__()
 
-        def blocks(n, use_moe=False):
-            return nn.ModuleList(Block(cfg, gen, device, dtype, use_moe)
-                                 for _ in range(n))
+        def blocks(n, use_moe=False, first=0):
+            return nn.ModuleList(Block(cfg, gen, device, dtype, use_moe,
+                                       _mixer(cfg, first + i))
+                                 for i in range(n))
         if cfg.block_pattern == "zamba_hybrid":
             n_sites, n_tail = _sites(cfg)
             self.groups = blocks(n_sites * cfg.attn_every)
@@ -332,7 +360,14 @@ class Stack(Params):
         n_dense = _n_dense(cfg)
         if n_dense:
             self.prefix = blocks(n_dense)
-        self.layers = blocks(cfg.n_layers - n_dense, cfg.moe is not None)
+        self.layers = blocks(cfg.n_layers - n_dense, cfg.moe is not None,
+                             n_dense)
+
+
+def _mixer(cfg: ModelConfig, layer: int) -> str:
+    """The mixer of an ``attn_mlp`` layer: ``attn``, or ``kda`` where the
+    config's ``layer_mixers`` says so."""
+    return cfg.layer_mixers[layer] if cfg.layer_mixers else "attn"
 
 
 def _n_dense(cfg: ModelConfig) -> int:
@@ -409,7 +444,8 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 device) -> Dict[str, List[Any]]:
     """Per-layer decode caches matching the stack: zamba_hybrid ``groups``
     (SSMState each), ``shared_kv`` (KVCache per site) and ``tail``; uniform
-    ``layers`` and, ahead of a MoE stack's dense blocks, ``prefix``."""
+    ``layers`` and, ahead of a MoE stack's dense blocks, ``prefix`` (a
+    KDAState for each KDA layer of ``layer_mixers``)."""
     if cfg.block_pattern == "zamba_hybrid":
         n_sites, n_tail = _sites(cfg)
 
@@ -430,19 +466,25 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                            for _ in range(cfg.n_layers)]}
     n_dense = _n_dense(cfg)
 
-    def kv(n):
-        return [attn_mod.init_kv_cache(cfg, batch, capacity, device)
-                for _ in range(n)]
-    caches = {"layers": kv(cfg.n_layers - n_dense)}
+    def kv(first, n):
+        return [kda_mod.init_kda_state(cfg, batch, device)
+                if _mixer(cfg, i) == "kda" else
+                attn_mod.init_kv_cache(cfg, batch, capacity, device)
+                for i in range(first, first + n)]
+    caches = {"layers": kv(n_dense, cfg.n_layers - n_dense)}
     if n_dense:
-        caches["prefix"] = kv(n_dense)
+        caches["prefix"] = kv(0, n_dense)
     return caches
 
 
 def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor,
                  ctx=None) -> Tuple[torch.Tensor, Dict[str, List[Any]]]:
     """One-token decode through all layers. Returns (x, new caches); ``ctx``
-    runs every block over the mesh on caches from ``shard_caches``."""
+    runs every block over the mesh on caches from ``shard_caches``. Into
+    the tracer that `repro_torch.core.telemetry.recording` made current, a
+    uniform stack records two spans a block, ``serve.decode.<mixer>``
+    (``kda``, ``mla`` or ``gqa``) and ``serve.decode.<ffn>`` (``moe`` or
+    ``mlp``), each with ``device_s`` on a card."""
     if cfg.block_pattern == "zamba_hybrid":
         ge = cfg.attn_every
         new = {"groups": [], "shared_kv": []}
@@ -461,11 +503,14 @@ def stack_decode(params, caches, cfg: ModelConfig, x: torch.Tensor,
                 x, c = block_decode(block, cfg, x, c, ctx)
                 new["tail"].append(c)
         return x, new
+    tr = telemetry.current()
+    marks = (telemetry.DeviceMarks(tr, "serve.decode.", x.device)
+             if tr.enabled else None)
     new = {}
     for kind, blocks in _uniform(params):
         new[kind] = []
         for block, c in zip(blocks, caches[kind]):
-            x, c = block_decode(block, cfg, x, c, ctx)
+            x, c = block_decode(block, cfg, x, c, ctx, marks)
             new[kind].append(c)
     return x, new
 

@@ -31,8 +31,10 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import fsdp_gather, local, row_axes
+from repro_torch.models import kda as kda_mod
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import dt, rmsnorm
@@ -128,7 +130,20 @@ class ServeSession:
     list of ``(request_id, prompt tokens, seconds)``, the time to the first
     token; ``"decode"`` a list of ``(active slots, seconds)`` per step.
     ``nonfinite_logits`` counts the logits, over every prefill and decode
-    step, that were not finite. With ``ctx`` every prefill runs over its
+    step, that were not finite.
+
+    Into the tracer that `repro_torch.core.telemetry.recording` made
+    current, on ``time.perf_counter()`` and track ``host``, each step
+    records ``serve.step``, with a ``serve.prefill`` a request it admits
+    (``request``, ``tokens``) and one ``serve.decode`` (``active`` slots,
+    ``device_s`` between CUDA events on a card) whose children are the
+    stack's spans a layer (`repro_torch.models.transformer.stack_decode`);
+    and the counters ``serve.tokens`` (tokens returned, first tokens
+    included), ``serve.prefill_tokens``, ``serve.kda_state_bytes`` (a
+    decode step's KDA state, read and written once a slot and layer, and
+    the KDA weights once) and ``serve.latent_positions`` (the positions
+    the MLA layers' decode attended, over the active slots). Without a
+    recording it reads no extra clock and makes no event. With ``ctx`` every prefill runs over its
     mesh (:func:`prefill_step`) and so does every decode step, on caches
     laid out by ``model.shard_caches`` (:func:`decode_step`); ``params``
     are plain tensors, whole on every rank, or the model laid out by
@@ -141,6 +156,9 @@ class ServeSession:
         if on != {self.device.type}:
             raise ValueError(f"params on {sorted(on)}, session on "
                              f"{self.device}")
+        if ctx is not None and cfg.kda is not None:
+            raise ValueError("a model with KDA layers is not served over a "
+                             "mesh")
         self.params = params
         self.cfg = cfg
         self.ctx = ctx
@@ -168,9 +186,10 @@ class ServeSession:
 
     def _splice(self, slot: int, caches_new, token: int) -> None:
         """Copy a prefilled single-request cache into batch slot ``slot``:
-        every field of every per-layer cache (KVCache k, v, length; SSMState
-        h, the three conv tails, length; RWKVState s, x_tm, x_cm, length)
-        has the batch first. Over a mesh both are ``DTensor``s laid out
+        every field of every per-layer cache (KVCache k, v, length; KDAState
+        s and the three conv tails, so a reused slot starts from the
+        request's own state; SSMState h, the three conv tails, length;
+        RWKVState s, x_tm, x_cm, length) has the batch first. Over a mesh both are ``DTensor``s laid out
         alike along every dim but the batch (the request's one row on
         every rank): this rank's block of the request's row goes into its
         row, where the slot is among this rank's rows."""
@@ -186,6 +205,17 @@ class ServeSession:
     def step(self) -> int:
         """One engine step: admit pending requests, then decode all active
         slots. Returns the number of active requests."""
+        tr = telemetry.current()
+        if not tr.enabled:
+            return self._step(None)
+        since = len(tr.spans)
+        with tr.region("serve.step", time.perf_counter(), track="host") as sp:
+            n = self._step(tr)
+            sp.t_end = time.perf_counter()
+        telemetry.settle_device_s(tr, since)
+        return n
+
+    def _step(self, tr) -> int:
         while self.queue and self._free_slot() is not None:
             req = self.queue.pop(0)
             slot = self._free_slot()
@@ -197,8 +227,15 @@ class ServeSession:
                 self.ctx)
             first = int(greedy_sample(logits)[0])
             self.nonfinite_logits += int((~torch.isfinite(logits)).sum())
+            t1 = time.perf_counter()
             self.timings["prefill"].append(
-                (req.request_id, len(req.prompt), time.perf_counter() - t0))
+                (req.request_id, len(req.prompt), t1 - t0))
+            if tr is not None:
+                tr.span("serve.prefill", t0, t1, request=req.request_id,
+                        tokens=len(req.prompt))
+                tr.metrics.counter("serve.prefill_tokens").inc(
+                    len(req.prompt))
+                tr.metrics.counter("serve.tokens").inc(1)
             req.generated.append(first)
             req.slot = slot
             self.slots[slot] = req
@@ -206,13 +243,17 @@ class ServeSession:
         if not any(self.slots):
             return 0
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(self.tokens, dtype=torch.long,
-                                 device=self.device)
-        logits, self.caches = decode_step(self.params, self.cfg, tokens,
-                                          self.caches, self.ctx)
-        nxt = greedy_sample(logits).cpu().numpy()
-        self.nonfinite_logits += int((~torch.isfinite(logits)).sum())
         active = sum(r is not None for r in self.slots)
+        if tr is None:
+            nxt, logits, _ = self._decode(False)
+        else:
+            ev0 = telemetry.device_event(self.device)
+            with tr.region("serve.decode", t0, active=active) as sp:
+                nxt, logits, ev1 = self._decode(True)
+                sp.t_end = time.perf_counter()
+            sp.attrs["device_s"] = (ev0, ev1) if ev0 is not None else None
+            self._count_decode(tr, active)
+        self.nonfinite_logits += int((~torch.isfinite(logits)).sum())
         self.timings["decode"].append((active, time.perf_counter() - t0))
         for i, req in enumerate(self.slots):
             if req is None:
@@ -225,6 +266,34 @@ class ServeSession:
                 self.finished.append(req)
                 self.slots[i] = None
         return sum(r is not None for r in self.slots)
+
+    def _decode(self, event: bool):
+        """One decode step of every slot: (the greedy tokens on the host,
+        the logits, and with ``event`` a CUDA event recorded after them or
+        None); the caches advanced."""
+        tokens = torch.as_tensor(self.tokens, dtype=torch.long,
+                                 device=self.device)
+        logits, self.caches = decode_step(self.params, self.cfg, tokens,
+                                          self.caches, self.ctx)
+        ev = telemetry.device_event(self.device) if event else None
+        return greedy_sample(logits).cpu().numpy(), logits, ev
+
+    def _count_decode(self, tr, active: int) -> None:
+        """The counters of a recorded decode step (see the class)."""
+        tr.metrics.counter("serve.tokens").inc(active)
+        mixers = [tf._mixer(self.cfg, i) for i in range(self.cfg.n_layers)]
+        if self.cfg.kda is not None:
+            weights = sum(p.numel() * p.element_size() for n, p in
+                          self.params.named_parameters() if ".kda." in n)
+            tr.metrics.counter("serve.kda_state_bytes").inc(
+                2 * mixers.count("kda") * self.B
+                * kda_mod.state_bytes(self.cfg) + weights)
+        if self.cfg.attention == "mla":
+            # the token fed to slot i sits at position prompt + generated - 1
+            seen = sum(len(r.prompt) + len(r.generated) for r in self.slots
+                       if r is not None)
+            tr.metrics.counter("serve.latent_positions").inc(
+                mixers.count("attn") * seen)
 
     def run_to_completion(self, max_steps: int = 10_000) -> List[Request]:
         steps = 0

@@ -47,6 +47,7 @@ import torch
 from repro_torch.core import telemetry
 from repro_torch.core.fabric import Fabric
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.hedm import h2d
 from repro_torch.kernels import hedm_label
 from repro_torch.kernels.hedm_label import label_components
 
@@ -203,19 +204,27 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
     when there are spots) and ``stage1.unpack``, or on the host
     ``stage1.d2h`` (the mask), ``stage1.index`` and one ``stage1.labels``
     and ``stage1.centroids`` a frame; and the counters ``stage1.frames``,
-    ``stage1.h2d_bytes`` (frames, dark, and weights where copied) and, on
-    the card path,
-    ``stage1.card_labeled_frames``. On a card the ``h2d``, ``filter``,
-    ``label`` and ``d2h`` spans carry ``device_s``: device seconds between
-    CUDA events on the stream, read once the last blocking copy to the host
-    is done. Nothing synchronizes.
+    ``stage1.h2d_bytes`` (frames, dark, and weights where copied), on a
+    card ``stage1.h2d_pinned_bytes`` and ``stage1.h2d_slot_waits`` (see
+    below) and, on the card path, ``stage1.card_labeled_frames``. On a
+    card the ``h2d``, ``filter``, ``label`` and ``d2h`` spans carry
+    ``device_s``: device seconds between CUDA events on the stream, read
+    once the last blocking copy to the host is done. Nothing synchronizes.
+
+    On a card every array goes through `repro_torch.hedm.h2d`'s ring of
+    page-locked slots (``h2d_pinned_bytes`` counts its bytes; equal to
+    ``h2d_bytes``): the ``h2d`` span ends when the last chunk's DMA is
+    queued, and ``h2d_slot_waits`` counts the chunks for which the host
+    found its slot's last DMA unfinished. On the CPU the arrays are
+    wrapped as they are.
 
     ``timings``, when given, accumulates the host seconds of those spans
     per phase: ``h2d``, ``kernel`` (the filter's launch), ``d2h`` (the
     copies, which wait for the device) and ``labeling`` (the rest: the
     labeler's launches and the unpacking, or the host's index, labels and
     centroids); they add up to the call. With neither a tracer nor
-    ``timings`` it reads no clock and makes no CUDA event.
+    ``timings`` it reads no clock and makes no CUDA event (the ring's, made
+    once on a card's first call, aside).
     """
     dev = resolve_device(device)
     tr = telemetry.current()
@@ -235,16 +244,21 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
 
     on_card = use_kernel and dev.type == "cuda"
     as_given = frames.dtype in (np.float32, np.uint16)
-    filter_in = frames if as_given else frames.astype(np.float32)
-    dark32 = np.asarray(dark, dtype=np.float32)
-    frames_t = _tensor(filter_in, dev)
-    dark_t = _tensor(dark32, dev)
-    # the card's labeler weighs the frames as given; float64 holds any
-    # other type's values as the host's centroids take them
-    weights_t = (frames_t if as_given or not on_card
-                 else _tensor(frames.astype(np.float64), dev))
-    h2d_bytes = (filter_in.nbytes + dark32.nbytes
-                 + (0 if weights_t is frames_t else weights_t.nbytes))
+    staged = [frames if as_given else frames.astype(np.float32),
+              np.asarray(dark, dtype=np.float32)]
+    if on_card and not as_given:
+        # the card's labeler weighs the frames as given; float64 holds any
+        # other type's values as the host's centroids take them
+        staged.append(frames.astype(np.float64))
+    h2d_bytes = sum(a.nbytes for a in staged)
+    if dev.type == "cuda":
+        tensors, slot_waits = h2d.to_device(staged, dev)
+    else:
+        tensors = [_tensor(a, dev) for a in staged]
+    del staged
+    frames_t, dark_t = tensors[:2]
+    weights_t = tensors[2] if len(tensors) == 3 else frames_t
+    del tensors
     mark("h2d")
     if use_kernel:
         from repro_torch.kernels.ops import hedm_reduce
@@ -252,7 +266,7 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
     else:
         from repro_torch.kernels.hedm_reduce import reference
         masks, counts = reference(frames_t, dark_t, threshold=threshold)
-    del dark_t, filter_in
+    del dark_t
     mark("filter")
     out = []
     if on_card:
@@ -304,6 +318,9 @@ def reduce_frames(frames: np.ndarray, dark: np.ndarray,
         phases[name] = phases.get(name, 0.0) + (b - a)
     tr.metrics.counter("stage1.frames").inc(F)
     tr.metrics.counter("stage1.h2d_bytes").inc(h2d_bytes)
+    if dev.type == "cuda":
+        tr.metrics.counter("stage1.h2d_pinned_bytes").inc(h2d_bytes)
+        tr.metrics.counter("stage1.h2d_slot_waits").inc(slot_waits)
     if on_card:
         tr.metrics.counter("stage1.card_labeled_frames").inc(F)
     if timings is not None:

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.hedm import pipeline as T
-from repro_torch.hedm import service, streaming
+from repro_torch.hedm import h2d, service, streaming
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hedm_label as HL
 from repro_torch.kernels import hedm_reduce as port
@@ -226,6 +226,83 @@ def test_stage1_on_card_equals_cpu(card, monkeypatch, F, size, dtype):
     assert sum(r.n_spots for r in on_card) >= 4 * F
     assert T.pack_reduced(on_card).tobytes() == \
         T.pack_reduced(on_cpu).tobytes()
+
+
+def _small_ring(card, monkeypatch, slot_bytes, slots=3):
+    """``reduce_frames``'s ring on ``card`` replaced by one of ``slots``
+    slots of ``slot_bytes``."""
+    ring = h2d.StagingRing(card, slots, slot_bytes)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    monkeypatch.setattr(h2d, "_rings", {dev: ring})
+    return ring
+
+
+#: slot sizes that split a frame mid-row, and mid-element: a 192-wide
+#: float32 row is 768 bytes; 2048-wide, 8,192
+RING_SLOTS = [40_001, 3 * 8_192 + 20, 1 << 20]
+
+
+@pytest.mark.parametrize("slot_bytes", RING_SLOTS)
+@pytest.mark.parametrize("dtype", [np.float32, np.uint16, np.float64])
+@pytest.mark.parametrize("F,size", [(8, 192), (3, 2048)])
+def test_stage1_through_a_small_ring_equals_cpu(card, monkeypatch, F, size,
+                                                dtype, slot_bytes):
+    # each call wraps the ring many times: 8 float32 frames of 192^2 are
+    # 30 chunks of 40,001 bytes, 3 of 2048^2 48 of 1 MiB
+    from repro_torch.core import telemetry
+    ring = _small_ring(card, monkeypatch, slot_bytes)
+    frames, dark = _detector_scan(F, size, dtype)
+    frames = frames.astype(dtype)
+    tr = telemetry.Tracer()
+    with telemetry.recording(tr):
+        on_card = T.reduce_frames(frames, dark, device=card)
+    on_cpu = T.reduce_frames(frames, dark, device="cpu")
+    assert sum(r.n_spots for r in on_card) >= 4 * F
+    assert T.pack_reduced(on_card).tobytes() == \
+        T.pack_reduced(on_cpu).tobytes()
+    # float64 frames go as the filter's float32 and the labeler's float64
+    sizes = ([frames.size * 4, dark.size * 4, frames.nbytes]
+             if dtype == np.float64 else [frames.nbytes, dark.size * 4])
+    counters = tr.metrics.snapshot()["counters"]
+    assert counters["stage1.h2d_bytes"] == sum(sizes)
+    assert counters["stage1.h2d_pinned_bytes"] == sum(sizes)
+    plan = h2d.chunk_plan(sizes, slot_bytes, 3)
+    assert 0 <= counters["stage1.h2d_slot_waits"] <= len(plan)
+    assert ring.next_slot == len(plan) % 3
+
+
+def test_stage1_back_to_back_windows_through_the_ring(card, monkeypatch):
+    # windows of a scan one after the other, nothing synchronized between
+    # calls: each slot is refilled while the last call's DMAs may be queued
+    _small_ring(card, monkeypatch, 3 * 8_192 + 20)
+    frames, dark = _detector_scan(12, 2048, np.uint16)
+    got = [T.reduce_frames(frames[w:w + 3], dark, device=card)
+           for w in range(0, 12, 3)]
+    for w, window in zip(range(0, 12, 3), got):
+        want = T.reduce_frames(frames[w:w + 3], dark, device="cpu")
+        assert T.pack_reduced(window).tobytes() == \
+            T.pack_reduced(want).tobytes()
+
+
+@pytest.mark.parametrize("slot_bytes", [h2d.SLOT_BYTES, 40_001])
+def test_ring_copies_are_the_callers_bytes_when_it_returns(card,
+                                                           slot_bytes):
+    # the source is overwritten as soon as the call returns, its DMAs
+    # still queued: what reaches the card is what was there at the call
+    ring = h2d.StagingRing(card, 3, slot_bytes)
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 60000, (8, 2048, 2048)).astype(np.float32)
+    dark = rng.integers(0, 20, (2048, 2048)).astype(np.float32)
+    want = [frames.copy(), dark.copy()]
+    for _ in range(2):
+        out, _ = ring.stage([frames, dark])
+        frames[...] = -1.0
+        dark[...] = -1.0
+        torch.cuda.synchronize()
+        for t, w in zip(out, want):
+            assert torch.equal(t.cpu(), torch.from_numpy(w))
+        frames[...] = want[0]
+        dark[...] = want[1]
 
 
 def test_stage1_with_the_plain_filter_labels_on_the_host(card):

@@ -18,7 +18,9 @@ reports:
 * the clock check: every ``hedm_reduce`` kernel starts after its call's
   ``stage1.filter`` span opens, every copy to the host lies inside a
   ``stage1.d2h`` and every copy to the card inside ``stage1.h2d`` (the
-  smallest margins, in us; a negative margin is a misalignment);
+  smallest margins, in us; a negative margin is a misalignment, except at
+  the end of a copy to the card: the span ends when the staging ring has
+  queued its last chunk, whose DMA lands after it);
 * the CUDA runtime calls (``cudaStreamSynchronize``, ...) by the program
   span they start in: where the host waits for the card.
 

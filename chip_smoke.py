@@ -1101,7 +1101,7 @@ def cuda_core_kernel(torch, mod, *args):
     the tensor cores: the earlier design, timed beside the new one. ``args``
     as the C function takes them after the input pointers; returns a
     launcher."""
-    fn = mod._function(mod._SYMBOLS[torch.bfloat16])
+    fn = mod._LIB.function(mod._SYMBOLS[torch.bfloat16])
 
     def launch(*ptrs):
         err = fn(*ptrs, *args, torch.cuda.current_stream().cuda_stream)
@@ -2378,7 +2378,7 @@ def card_constants(torch, dev, seconds):
     copy_gbs = 2 * 2**30 / (cp_ms * 1e-3) / 1e9        # read + write
     q = torch.randn(1, 128, 1, 64, dtype=torch.bfloat16, device=dev)
     o = torch.empty_like(q)
-    fn = fa._function(fa._SYMBOL_TC)
+    fn = fa._LIB.function(fa._SYMBOL_TC)
     stream = torch.cuda.current_stream().cuda_stream
 
     def direct():

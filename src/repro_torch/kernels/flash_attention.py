@@ -26,13 +26,9 @@ launch, or hd > 192, raises. ``flash_attention.launches`` counts kernel
 launches of both, ``flash_attention.launches_tc`` those of the tensor-core
 kernel.
 
-The launch is also a dispatcher op (``torch.library.custom_op``
-``repro_torch::flash_attention``): its implementation is the launch (and
-the place that counts it), its fake implementation gives the outputs'
-shapes on fake tensors, and :func:`flops` is its registered FLOP formula,
-so `repro_torch.launch.dryrun` traces the card's program with no build
-and no launch. Only a traced call (``_build.traced``: fake tensors, or a
-dispatch mode) goes through the op; any other launches directly.
+The launch is also the dispatcher op ``repro_torch::flash_attention``,
+with :func:`flops` as its FLOP formula (the contract:
+`repro_torch.kernels._build`).
 
 The TPU kernel's ``block_q``/``block_k`` sized VMEM tiles and ``interpret``
 chose Pallas' interpreter; the card's tiles are fixed by its shared memory,
@@ -42,11 +38,10 @@ designs do about it.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 from typing import Optional
 
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -126,24 +121,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     implementation gives the output's shape and :func:`flops` its work,
     with no build and no launch. A CPU input runs :func:`reference`."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if not _build.on_card("flash_attention", q, k, v):
         return reference(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _build.refuse_grad("flash_attention", q, k, v)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention needs contiguous q, k and v")
     hd = q.shape[3]
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention takes hd <= {MAX_HEAD_DIM}, got "
                          f"{hd}")
-    run = _op if _build.traced(q, k, v) else _launch
-    return run(q, k, v, bool(causal), int(window),
-               float(hd ** -0.5 if scale is None else scale))
+    return _run(q, k, v, bool(causal), int(window),
+                float(hd ** -0.5 if scale is None else scale))
 
 
-flash_attention.launches = 0
-flash_attention.launches_tc = 0
+_P, _I = c_void_p, c_int
+_LIB = _build.Library(
+    "flash_attention",
+    {symbol: [_P, _P, _P, _P, _I, _I, _I, _I, _I, c_float, _I, _I]
+     for symbol in (*_SYMBOLS.values(), _SYMBOL_TC)}, flash_attention,
+    tc=_SYMBOL_TC)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -159,26 +153,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _function(_SYMBOL_TC if tc else _SYMBOLS[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, KV, hd, float(scale), int(bool(causal)),
-                 int(window), stream)
-    _build.check("flash_attention", err)
-    flash_attention.launches += 1
-    flash_attention.launches_tc += tc
+    _LIB.launch(_SYMBOL_TC if tc else _SYMBOLS[q.dtype], q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, KV, hd, float(scale), int(bool(causal)),
+                int(window))
     return out
 
 
-_op = torch.library.custom_op(
-    "repro_torch::flash_attention", _launch, mutates_args=(),
-    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
-           "float scale) -> Tensor")
-
-
-@_op.register_fake
-def _(q, k, v, causal, window, scale):
+def _fake(q, k, v, causal, window, scale):
     return torch.empty_like(q)
 
 
@@ -205,11 +187,13 @@ def flops(B: int, S: int, H: int, hd: int, causal: bool = True,
     return 2 * (hd + dv) * H * B * attention_pairs(S, causal, window)
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flop_formula(q_shape, k_shape, v_shape, causal, window, scale, *args,
-                  **kwargs) -> int:
-    B, S, H, hd = q_shape
-    return flops(B, S, H, hd, causal, window)
+def _flop_formula(q_shape, k_shape, v_shape, causal, window, scale) -> int:
+    return flops(*q_shape, causal, window)
+
+
+_run = _build.op("flash_attention",
+                 "(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+                 "float scale) -> Tensor", _launch, _fake, _flop_formula)
 
 
 def on_tensor_cores(q: torch.Tensor, k: torch.Tensor,
@@ -221,15 +205,3 @@ def on_tensor_cores(q: torch.Tensor, k: torch.Tensor,
     return (q.dtype == torch.bfloat16 and hd % 8 == 0
             and hd <= MAX_HEAD_DIM
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
-
-
-_FUNCTIONS = {}
-
-
-def _function(symbol: str):
-    if symbol not in _FUNCTIONS:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _FUNCTIONS[symbol] = _build.bind(
-            "flash_attention", symbol,
-            [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p])
-    return _FUNCTIONS[symbol]

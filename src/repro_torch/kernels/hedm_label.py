@@ -43,7 +43,7 @@ does about it.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_void_p
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -278,17 +278,6 @@ def _check(mask: torch.Tensor, frames: torch.Tensor) -> None:
         raise ValueError(f"mask on {mask.device}, frames on {frames.device}")
 
 
-def _check_card(mask: torch.Tensor, frames: torch.Tensor) -> None:
-    if mask.device.type != "cuda":
-        raise ValueError(f"unsupported device {mask.device}")
-    if not (mask.is_contiguous() and frames.is_contiguous()):
-        raise ValueError("hedm_label needs a contiguous mask and frames")
-    _, H, W = mask.shape
-    if H * W > _MAX_FRAME:
-        raise ValueError(f"at most {_MAX_FRAME} pixels a frame, got "
-                         f"{H}x{W}")
-
-
 def _chunks(F: int, H: int, W: int) -> List[Tuple[int, int]]:
     """Frame ranges of at most :data:`CHUNK_PIXELS` pixels (one frame at
     least) and 65535 frames (gridDim.z)."""
@@ -303,22 +292,15 @@ def _at(t: torch.Tensor, offset: int) -> int:
     return t.data_ptr() + int(offset) * t.element_size()
 
 
-def _call(name: str, *args) -> None:
-    """Call the library's function ``name``: one chain of launches on the
-    stream, counted in ``hedm_label.launches``."""
-    _build.check("hedm_label", _function(name)(*args))
-    hedm_label.launches += 1
-
-
-def _label_chunk(lab: Labeling, f0: int, f1: int, stream: int,
-                 count: bool) -> None:
+def _label_chunk(lab: Labeling, f0: int, f1: int, count: bool) -> None:
     """Pass 1 over frames f0..f1 into the scratch; ``count`` adds their
     counts to the head (pass 2 labels a chunk again without)."""
     F, H, W = lab.mask.shape
     head = ((_at(lab.head, f0), _at(lab.head, F + f0)) if count
             else (None, None))
-    _call("hedm_label_chunk", _at(lab.mask, f0 * H * W), f1 - f0, H, W,
-          lab.scratch.data_ptr(), *head, stream)
+    _LIB.launch("hedm_label_chunk", lab.mask.device,
+                _at(lab.mask, f0 * H * W), f1 - f0, H, W,
+                lab.scratch.data_ptr(), *head)
 
 
 def label(mask: torch.Tensor, frames: torch.Tensor) -> Labeling:
@@ -327,8 +309,12 @@ def label(mask: torch.Tensor, frames: torch.Tensor) -> Labeling:
     stream reaches it. Frames of a type :data:`_WEIGH` lacks are cast to
     float64 on the card for pass 2."""
     _check(mask, frames)
-    _check_card(mask, frames)
+    if not _build.on_card("hedm_label", mask, frames):
+        raise ValueError(f"unsupported device {mask.device}")
     F, H, W = mask.shape
+    if H * W > _MAX_FRAME:
+        raise ValueError(f"at most {_MAX_FRAME} pixels a frame, got "
+                         f"{H}x{W}")
     chunks = _chunks(F, H, W)
     step = chunks[0][1] if chunks else 0
     lab = Labeling(mask,
@@ -338,10 +324,8 @@ def label(mask: torch.Tensor, frames: torch.Tensor) -> Labeling:
                                device=mask.device),
                    torch.zeros((2, F), dtype=torch.int32, device=mask.device),
                    chunks)
-    with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream(mask.device).cuda_stream
-        for f0, f1 in chunks:
-            _label_chunk(lab, f0, f1, stream, count=True)
+    for f0, f1 in chunks:
+        _label_chunk(lab, f0, f1, count=True)
     return lab
 
 
@@ -356,23 +340,21 @@ def weigh(lab: Labeling, n_spots: np.ndarray) -> torch.Tensor:
     if exact:       # the sums of the largest chunk, zeroed a chunk at a time
         most = max((int(ends[b] - ends[a]) for a, b in lab.chunks), default=0)
         sums = torch.empty((most, 3), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for f0, f1 in lab.chunks:
-            K = int(ends[f1] - ends[f0])
-            if not K:
-                continue
-            if len(lab.chunks) > 1:   # the scratch holds the last chunk
-                _label_chunk(lab, f0, f1, stream, count=False)
-            at = f0 * H * W
-            args = (_at(lab.mask, at), _at(lab.weights, at), f1 - f0, H, W,
-                    lab.scratch.data_ptr(), K)
-            out = _at(peaks, 3 * ends[f0])
-            if exact:
-                _call("hedm_label_weigh_u16_exact", *args, sums.data_ptr(),
-                      out, stream)
-            else:
-                _call(_WEIGH[lab.weights.dtype], *args, out, stream)
+    for f0, f1 in lab.chunks:
+        K = int(ends[f1] - ends[f0])
+        if not K:
+            continue
+        if len(lab.chunks) > 1:   # the scratch holds the last chunk
+            _label_chunk(lab, f0, f1, count=False)
+        at = f0 * H * W
+        args = (_at(lab.mask, at), _at(lab.weights, at), f1 - f0, H, W,
+                lab.scratch.data_ptr(), K)
+        out = _at(peaks, 3 * ends[f0])
+        if exact:
+            _LIB.launch("hedm_label_weigh_u16_exact", dev, *args,
+                        sums.data_ptr(), out)
+        else:
+            _LIB.launch(_WEIGH[lab.weights.dtype], dev, *args, out)
     return peaks
 
 
@@ -392,19 +374,10 @@ def hedm_label(mask: torch.Tensor, frames: torch.Tensor
     return n_signal, n_spots, weigh(lab, n_spots).cpu().numpy()
 
 
-hedm_label.launches = 0
-
-_FUNCTIONS = {}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = {"hedm_label_chunk": [_P, _I, _I, _I, _P, _P, _P, _P],
-         "hedm_label_weigh_u16_exact": [_P, _P, _I, _I, _I, _P, _I, _P, _P,
-                                        _P],
-         **{name: [_P, _P, _I, _I, _I, _P, _I, _P, _P]
-            for name in _WEIGH.values()}}
-
-
-def _function(name: str):
-    """The bound C function ``name`` of ``csrc/hedm_label.cu``."""
-    if name not in _FUNCTIONS:
-        _FUNCTIONS[name] = _build.bind("hedm_label", name, _ARGS[name])
-    return _FUNCTIONS[name]
+_P, _I = c_void_p, c_int
+_LIB = _build.Library(
+    "hedm_label",
+    {"hedm_label_chunk": [_P, _I, _I, _I, _P, _P, _P],
+     "hedm_label_weigh_u16_exact": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
+     **{name: [_P, _P, _I, _I, _I, _P, _I, _P]
+        for name in _WEIGH.values()}}, hedm_label)

@@ -12,13 +12,8 @@ hand-written kernel ``csrc/hedm_reduce.cu`` (built for sm_90a at first use,
 see `repro_torch.kernels._build`) or raises; on a CPU tensor it runs
 :func:`reference`. ``hedm_reduce.launches`` counts kernel launches.
 
-The launch is also a dispatcher op (``torch.library.custom_op``
-``repro_torch::hedm_reduce``): its implementation is the launch (and the
-place that counts it), its fake implementation gives the outputs' shapes
-on fake tensors, and :func:`flops` is its registered FLOP formula, so
-`repro_torch.launch.dryrun` traces the card's program with no build and
-no launch. Only a traced call (``_build.traced``: fake tensors, or a
-dispatch mode) goes through the op; any other launches directly.
+The launch is also the dispatcher op ``repro_torch::hedm_reduce``, with
+:func:`flops` as its FLOP formula (the contract: `repro_torch.kernels._build`).
 
 The TPU kernel's knobs are gone: ``tile_rows`` and ``vmem_budget_bytes``
 sized row tiles to the TPU's VMEM, and a GPU thread's strip of 8 columns
@@ -32,11 +27,10 @@ its design does about it.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 from typing import Tuple
 
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -95,20 +89,18 @@ def hedm_reduce(frames: torch.Tensor, dark: torch.Tensor,
     fake implementation gives the outputs' shapes and :func:`flops` its
     work. A CPU input runs :func:`reference`."""
     _check(frames, dark)
-    if frames.device.type == "cpu":
+    if not _build.on_card("hedm_reduce", frames, dark):
         return reference(frames, dark, threshold)
-    if frames.device.type != "cuda":
-        raise ValueError(f"unsupported device {frames.device}")
-    if not (frames.is_contiguous() and dark.is_contiguous()):
-        raise ValueError("hedm_reduce needs contiguous frames and dark")
     if frames.shape[0] > _MAX_FRAMES:
         raise ValueError(f"at most {_MAX_FRAMES} frames per launch, got "
                          f"{frames.shape[0]}")
-    run = _op if _build.traced(frames, dark) else _launch
-    return run(frames, dark, float(threshold))
+    return _run(frames, dark, float(threshold))
 
 
-hedm_reduce.launches = 0
+_P, _I = c_void_p, c_int
+_LIB = _build.Library("hedm_reduce",
+                      {symbol: [_P, _P, _P, _P, _I, _I, _I, c_float]
+                       for symbol in _SYMBOLS.values()}, hedm_reduce)
 
 
 def _launch(frames: torch.Tensor, dark: torch.Tensor,
@@ -119,24 +111,13 @@ def _launch(frames: torch.Tensor, dark: torch.Tensor,
     counts = torch.zeros((F,), dtype=torch.int32, device=frames.device)
     if mask.numel() == 0:
         return mask, counts
-    fn = _function(_SYMBOLS[frames.dtype])
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
-        err = fn(frames.data_ptr(), dark.data_ptr(), mask.data_ptr(),
-                 counts.data_ptr(), F, H, W, float(threshold), stream)
-    _build.check("hedm_reduce", err)
-    hedm_reduce.launches += 1
+    _LIB.launch(_SYMBOLS[frames.dtype], frames.device, frames.data_ptr(),
+                dark.data_ptr(), mask.data_ptr(), counts.data_ptr(), F, H, W,
+                float(threshold))
     return mask, counts
 
 
-_op = torch.library.custom_op(
-    "repro_torch::hedm_reduce", _launch, mutates_args=(),
-    schema="(Tensor frames, Tensor dark, float threshold) -> "
-           "(Tensor, Tensor)")
-
-
-@_op.register_fake
-def _(frames, dark, threshold):
+def _fake(frames, dark, threshold):
     return (torch.empty_like(frames, dtype=torch.uint8),
             frames.new_empty((frames.shape[0],), dtype=torch.int32))
 
@@ -153,20 +134,10 @@ def flops(F: int, H: int, W: int) -> int:
     return OPS_PER_PIXEL * F * H * W
 
 
-@register_flop_formula(torch.ops.repro_torch.hedm_reduce)
-def _flop_formula(frames_shape, dark_shape, threshold, *args,
-                  **kwargs) -> int:
+def _flop_formula(frames_shape, dark_shape, threshold) -> int:
     return flops(*frames_shape)
 
 
-_FUNCTIONS = {}
-
-
-def _function(name: str):
-    """The bound C function ``name`` of ``csrc/hedm_reduce.cu``."""
-    if name not in _FUNCTIONS:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _FUNCTIONS[name] = _build.bind("hedm_reduce", name,
-                                       [p, p, p, p, i, i, i, ctypes.c_float,
-                                        p])
-    return _FUNCTIONS[name]
+_run = _build.op("hedm_reduce",
+                 "(Tensor frames, Tensor dark, float threshold) -> "
+                 "(Tensor, Tensor)", _launch, _fake, _flop_formula)

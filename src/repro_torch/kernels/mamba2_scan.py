@@ -22,13 +22,8 @@ No kernel falls back to the other or to :func:`reference`: a failed build
 or launch raises. ``mamba2_scan.launches`` counts kernel launches of both,
 ``mamba2_scan.launches_tc`` those of the tensor-core kernel.
 
-The launch is also a dispatcher op (``torch.library.custom_op``
-``repro_torch::mamba2_scan``): its implementation is the launch (and the
-place that counts it), its fake implementation gives the outputs' shapes
-on fake tensors, and :func:`flops` is its registered FLOP formula, so
-`repro_torch.launch.dryrun` traces the card's program with no build and
-no launch. Only a traced call (``_build.traced``: fake tensors, or a
-dispatch mode) goes through the op; any other launches directly.
+The launch is also the dispatcher op ``repro_torch::mamba2_scan``, with
+:func:`flops` as its FLOP formula (the contract: `repro_torch.kernels._build`).
 
 Both take any L: the last chunk may be short (the TPU kernel asserted
 ``L % chunk == 0``). The source note in ``csrc/mamba2_scan.cu`` says what
@@ -36,11 +31,10 @@ bounds the kernels and what their designs do about it.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_void_p
 from typing import Tuple
 
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -143,23 +137,22 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bm, Cm)
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
-    if x.device.type == "cpu":
+    if not _build.on_card("mamba2_scan", x, dt, A, Bm, Cm):
         return reference(x, dt, A, Bm, Cm, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     _build.refuse_grad("mamba2_scan", x, dt, A, Bm, Cm)
-    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
-        raise ValueError("mamba2_scan needs contiguous inputs")
     P, N = x.shape[3], Bm.shape[3]
     if P > MAX_P or N > MAX_N:
         raise ValueError(f"mamba2_scan takes P <= {MAX_P} and N <= {MAX_N}, "
                          f"got P {P}, N {N}")
-    run = _op if _build.traced(x, dt, A, Bm, Cm) else _launch
-    return run(x, dt, A, Bm, Cm, int(chunk))
+    return _run(x, dt, A, Bm, Cm, int(chunk))
 
 
-mamba2_scan.launches = 0
-mamba2_scan.launches_tc = 0
+_P, _I = c_void_p, c_int
+_LIB = _build.Library(
+    "mamba2_scan",
+    {symbol: [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
+     for symbol in (*_SYMBOLS.values(), _SYMBOL_TC)}, mamba2_scan,
+    tc=_SYMBOL_TC)
 
 
 def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -173,26 +166,14 @@ def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.numel() == 0:
         return y, h.zero_()
     tc = on_tensor_cores(x, Bm, Cm)
-    fn = _function(_SYMBOL_TC if tc else _SYMBOLS[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                 Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, L, H, P, G, N,
-                 chunk, stream)
-    _build.check("mamba2_scan", err)
-    mamba2_scan.launches += 1
-    mamba2_scan.launches_tc += tc
+    _LIB.launch(_SYMBOL_TC if tc else _SYMBOLS[x.dtype], x.device,
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, L, H, P, G, N,
+                chunk)
     return y, h
 
 
-_op = torch.library.custom_op(
-    "repro_torch::mamba2_scan", _launch, mutates_args=(),
-    schema="(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
-           "int chunk) -> (Tensor, Tensor)")
-
-
-@_op.register_fake
-def _(x, dt, A, Bm, Cm, chunk):
+def _fake(x, dt, A, Bm, Cm, chunk):
     B, L, H, P = x.shape
     return (torch.empty_like(x),
             x.new_empty((B, H, P, Bm.shape[3]), dtype=torch.float32))
@@ -211,11 +192,15 @@ def flops(B: int, L: int, H: int, P: int, N: int,
     return total
 
 
-@register_flop_formula(torch.ops.repro_torch.mamba2_scan)
-def _flop_formula(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk,
-                  *args, **kwargs) -> int:
-    B, L, H, P = x_shape
-    return flops(B, L, H, P, B_shape[3], chunk)
+def _flop_formula(x_shape, dt_shape, A_shape, B_shape, C_shape,
+                  chunk) -> int:
+    return flops(*x_shape, B_shape[3], chunk)
+
+
+_run = _build.op("mamba2_scan",
+                 "(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
+                 "int chunk) -> (Tensor, Tensor)", _launch, _fake,
+                 _flop_formula)
 
 
 def on_tensor_cores(x: torch.Tensor, Bm: torch.Tensor,
@@ -226,15 +211,3 @@ def on_tensor_cores(x: torch.Tensor, Bm: torch.Tensor,
     return (x.dtype == torch.bfloat16 and x.shape[3] % 8 == 0
             and Bm.shape[3] % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm)))
-
-
-_FUNCTIONS = {}
-
-
-def _function(symbol: str):
-    if symbol not in _FUNCTIONS:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _FUNCTIONS[symbol] = _build.bind(
-            "mamba2_scan", symbol,
-            [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p])
-    return _FUNCTIONS[symbol]

@@ -25,13 +25,8 @@ or launch raises. ``rwkv6_wkv.launches`` counts wrapper calls that
 launched a kernel (one a call, however many launches the call makes),
 ``rwkv6_wkv.launches_tc`` those on the tensor-core kernel.
 
-The launch is also a dispatcher op (``torch.library.custom_op``
-``repro_torch::rwkv6_wkv``): its implementation is the launch (and the
-place that counts it), its fake implementation gives the outputs' shapes
-on fake tensors, and :func:`flops` is its registered FLOP formula, so
-`repro_torch.launch.dryrun` traces the card's program with no build and
-no launch. Only a traced call (``_build.traced``: fake tensors, or a
-dispatch mode) goes through the op; any other launches directly.
+The launch is also the dispatcher op ``repro_torch::rwkv6_wkv``, with
+:func:`flops` as its FLOP formula (the contract: `repro_torch.kernels._build`).
 
 Both take any L: the last chunk may be short (the TPU wrapper shrank its
 chunk to a divisor of L). Both read the exclusive log-decay sum ``lprev[q]``
@@ -41,12 +36,11 @@ its design does about it.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_void_p
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -129,21 +123,20 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, w, u)
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
-    if r.device.type == "cpu":
+    if not _build.on_card("rwkv6_wkv", r, k, v, w, u):
         return reference(r, k, v, w, u, chunk)
-    if r.device.type != "cuda":
-        raise ValueError(f"unsupported device {r.device}")
     _build.refuse_grad("rwkv6_wkv", r, k, v, w, u)
-    if not all(t.is_contiguous() for t in (r, k, v, w, u)):
-        raise ValueError("rwkv6_wkv needs contiguous inputs")
     if r.shape[3] > MAX_N:
         raise ValueError(f"rwkv6_wkv takes N <= {MAX_N}, got {r.shape[3]}")
-    run = _op if _build.traced(r, k, v, w, u) else _launch
-    return run(r, k, v, w, u, int(chunk))
+    return _run(r, k, v, w, u, int(chunk))
 
 
-rwkv6_wkv.launches = 0
-rwkv6_wkv.launches_tc = 0
+_P, _I = c_void_p, c_int
+_LIB = _build.Library(
+    "rwkv6_wkv",
+    {**{symbol: [_P] * 7 + [_I] * 5 for symbol in _SYMBOLS.values()},
+     _SYMBOL_TC: [_P] * 8 + [_I] * 5}, rwkv6_wkv,
+    tc=_SYMBOL_TC)
 
 
 def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,24 +156,12 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         starts = torch.empty(scratch_bytes(B, L, H, N, chunk) // 4,
                              dtype=torch.float32, device=r.device)
         ptrs.append(starts.data_ptr())
-    fn = _function(_SYMBOL_TC if tc else _SYMBOLS[r.dtype])
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(*ptrs, B, L, H, N, chunk, stream)
-    _build.check("rwkv6_wkv", err)
-    rwkv6_wkv.launches += 1
-    rwkv6_wkv.launches_tc += tc
+    _LIB.launch(_SYMBOL_TC if tc else _SYMBOLS[r.dtype], r.device, *ptrs,
+                B, L, H, N, chunk)
     return out, s
 
 
-_op = torch.library.custom_op(
-    "repro_torch::rwkv6_wkv", _launch, mutates_args=(),
-    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, int chunk) "
-           "-> (Tensor, Tensor)")
-
-
-@_op.register_fake
-def _(r, k, v, w, u, chunk):
+def _fake(r, k, v, w, u, chunk):
     B, L, H, N = r.shape
     return (torch.empty_like(r),
             r.new_empty((B, H, N, N), dtype=torch.float32))
@@ -210,10 +191,15 @@ def flops(B: int, L: int, H: int, N: int, chunk: int = CHUNK) -> int:
     return sum(ops(B, L, H, N, chunk))
 
 
-@register_flop_formula(torch.ops.repro_torch.rwkv6_wkv)
-def _flop_formula(r_shape, k_shape, v_shape, w_shape, u_shape, chunk,
-                  *args, **kwargs) -> int:
+def _flop_formula(r_shape, k_shape, v_shape, w_shape, u_shape,
+                  chunk) -> int:
     return flops(*r_shape, chunk)
+
+
+_run = _build.op("rwkv6_wkv",
+                 "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+                 "int chunk) -> (Tensor, Tensor)", _launch, _fake,
+                 _flop_formula)
 
 
 def on_tensor_cores(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,15 +226,3 @@ def scratch_bytes(B: int, L: int, H: int, N: int, chunk: int = CHUNK) -> int:
     qp = 16 if Q <= 16 else 32 if Q <= 32 else 64
     bhc = B * H * -(-L // Q)
     return 4 * bhc * N * (N + 1) + 4 * bhc * qp * N
-
-
-_FUNCTIONS = {}
-
-
-def _function(symbol: str):
-    if symbol not in _FUNCTIONS:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        n_ptr = 8 if symbol == _SYMBOL_TC else 7
-        _FUNCTIONS[symbol] = _build.bind(
-            "rwkv6_wkv", symbol, [p] * n_ptr + [i, i, i, i, i, p])
-    return _FUNCTIONS[symbol]

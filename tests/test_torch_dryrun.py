@@ -26,14 +26,26 @@ devices, as tests/test_roofline.py runs it, killed at 240 s:
 * (e) ``dryrun.main`` end to end on smoke configs over small fake meshes;
 * (f) full-size cells that trace in under a minute here: qwen3-moe-30b-a3b
   ``train_4k --multi-pod`` and zamba2-7b ``long_500k``, whose per-rank
-  caches follow the reference's ``cache_pspecs``.
+  caches follow the reference's ``cache_pspecs``;
+* (g) the kernels' seam (`repro_torch.kernels._build`): the four ops keep
+  their schemas and formulas; each symbol's argument table matches its C
+  signature; a CPU call loads no library; on a stand-in library and card, each of the five wrappers launches only symbols it
+  declares, with as many arguments as declared and the stream last,
+  binds each once, counts each call, raises on a CUDA error, and reaches
+  the dispatcher op only when traced.
 """
+import contextlib
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
+import types
+import unittest.mock
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -43,7 +55,9 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeConfig, padded_vocab
 from repro_torch.distributed.op_cost import OpCost
 from repro_torch.distributed.sharding import _ref_path, make_ctx
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import hedm_label as hl
 from repro_torch.kernels import hedm_reduce as hr
 from repro_torch.kernels import mamba2_scan as ms
 from repro_torch.kernels import ops
@@ -634,3 +648,231 @@ def test_zamba2_long_500k_caches_follow_the_rule():
     res = dryrun.analyze(low, meta)
     assert res["memory"]["argument_bytes"] == sum(leaves.values())
     assert res["op_cost"]["on_pod_collective_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# (g) the kernels' seam
+# ---------------------------------------------------------------------------
+
+SCHEMAS = {
+    "hedm_reduce": "(Tensor frames, Tensor dark, float threshold) -> "
+                   "(Tensor, Tensor)",
+    "flash_attention": "(Tensor q, Tensor k, Tensor v, bool causal, "
+                       "int window, float scale) -> Tensor",
+    "mamba2_scan": "(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
+                   "int chunk) -> (Tensor, Tensor)",
+    "rwkv6_wkv": "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+                 "int chunk) -> (Tensor, Tensor)"}
+STREAM = 0x5EA1
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize("name", SCHEMAS)
+def test_kernel_ops_keep_their_schemas_and_formulas(name):
+    from torch.utils.flop_counter import flop_registry
+    packet = getattr(torch.ops.repro_torch, name)
+    assert str(packet.default._schema) == f"repro_torch::{name}{SCHEMAS[name]}"
+    assert packet in flop_registry
+
+
+def _wkv(N, dtype):
+    r, k, v = (torch.rand(1, 8, 2, N).to(dtype) for _ in range(3))
+    return r, k, v, torch.rand(1, 8, 2, N) * 0.5 + 0.4, torch.rand(2, N)
+
+
+def _scan(P, N, dtype):
+    x, Bm, Cm = (torch.rand(1, 8, 2, n).to(dtype) for n in (P, N, N))
+    return x, torch.rand(1, 8, 2) * 0.1, -torch.rand(2), Bm, Cm
+
+
+def _label(frames_dtype, chunk_pixels=hl.CHUNK_PIXELS):
+    """The labeler's two passes on two 8x8 frames in chunks of at most
+    ``chunk_pixels``: pass 1, then pass 2 for one spot and two."""
+    mask = torch.zeros(2, 8, 8, dtype=torch.uint8)
+    mask[:, 2:4, 2:4] = 1
+    with unittest.mock.patch.object(hl, "CHUNK_PIXELS", chunk_pixels):
+        lab = hl.label(mask, torch.ones(2, 8, 8).to(frames_dtype))
+        return hl.weigh(lab, np.array([1, 2]))
+
+
+#: (wrapper, a call on CPU tensors, the symbols it launches, tensor cores)
+LAUNCHES = {
+    "hedm_reduce-f32": (hr.hedm_reduce, lambda: hr.hedm_reduce(
+        torch.rand(2, 8, 8), torch.rand(8, 8)), ["hedm_reduce_f32"], False),
+    "hedm_reduce-u16": (hr.hedm_reduce, lambda: hr.hedm_reduce(
+        torch.zeros(2, 8, 8, dtype=torch.uint16), torch.rand(8, 8)),
+        ["hedm_reduce_u16"], False),
+    "flash-f32": (fa.flash_attention, lambda: fa.flash_attention(
+        *(torch.rand(1, 4, 2, 8) for _ in range(3))),
+        ["flash_attention_f32"], False),
+    "flash-bf16-tc": (fa.flash_attention, lambda: fa.flash_attention(
+        *(torch.rand(1, 4, 2, 8).to(BF) for _ in range(3))),
+        ["flash_attention_bf16_tc"], True),
+    "flash-bf16": (fa.flash_attention, lambda: fa.flash_attention(
+        *(torch.rand(1, 4, 2, 4).to(BF) for _ in range(3))),
+        ["flash_attention_bf16"], False),
+    "scan-f32": (ms.mamba2_scan, lambda: ms.mamba2_scan(
+        *_scan(8, 8, torch.float32)), ["mamba2_scan_f32"], False),
+    "scan-bf16-tc": (ms.mamba2_scan, lambda: ms.mamba2_scan(
+        *_scan(8, 8, BF)), ["mamba2_scan_bf16_tc"], True),
+    "scan-bf16": (ms.mamba2_scan, lambda: ms.mamba2_scan(*_scan(8, 4, BF)),
+                  ["mamba2_scan_bf16"], False),
+    "wkv-f32": (wk.rwkv6_wkv, lambda: wk.rwkv6_wkv(*_wkv(16, torch.float32)),
+                ["rwkv6_wkv_f32"], False),
+    "wkv-bf16-tc": (wk.rwkv6_wkv, lambda: wk.rwkv6_wkv(*_wkv(16, BF)),
+                    ["rwkv6_wkv_bf16_tc"], True),
+    "wkv-bf16": (wk.rwkv6_wkv, lambda: wk.rwkv6_wkv(*_wkv(8, BF)),
+                 ["rwkv6_wkv_bf16"], False),
+    "label-f32": (hl.hedm_label, lambda: _label(torch.float32),
+                  ["hedm_label_chunk", "hedm_label_weigh_f32"], False),
+    "label-u16": (hl.hedm_label, lambda: _label(torch.uint16),
+                  ["hedm_label_chunk", "hedm_label_weigh_u16_exact"], False),
+    "label-i32": (hl.hedm_label, lambda: _label(torch.int32),
+                  ["hedm_label_chunk", "hedm_label_weigh_f64"], False),
+    "label-f64-chunks": (hl.hedm_label, lambda: _label(torch.float64, 64),
+                         ["hedm_label_chunk", "hedm_label_chunk",
+                          "hedm_label_chunk", "hedm_label_weigh_f64",
+                          "hedm_label_chunk", "hedm_label_weigh_f64"],
+                         False)}
+MODULES = {"hedm_reduce": hr, "flash_attention": fa, "mamba2_scan": ms,
+           "rwkv6_wkv": wk, "hedm_label": hl}
+
+
+class _StandIn:
+    """A library's stand-in: each C function records its symbol, the
+    arguments and the argument types it was bound with, and returns
+    ``err``; ``<name>_error_string`` names the error."""
+
+    def __init__(self):
+        self.err, self.calls, self.bound = 0, [], []
+
+    def __getattr__(self, symbol):
+        if symbol.startswith("__"):
+            raise AttributeError(symbol)
+        self.bound.append(symbol)
+
+        def fn(*args):
+            if symbol.endswith("_error_string"):
+                return b"stand-in error"
+            self.calls.append((symbol, args, list(fn.argtypes)))
+            return self.err
+        return fn
+
+
+@pytest.fixture
+def stand_in_card(monkeypatch):
+    """Every wrapper on CPU tensors as if they were on the card: the
+    libraries are stand-ins, the device guard does nothing, the current
+    stream's handle is ``STREAM``; each library binds anew."""
+    libs = {}
+    monkeypatch.setattr(_build, "load",
+                        lambda name: libs.setdefault(name, _StandIn()))
+    monkeypatch.setattr(_build, "on_card", lambda name, *inputs: True)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=STREAM))
+    for mod in MODULES.values():
+        monkeypatch.setattr(mod._LIB, "_functions", {})
+    return libs
+
+
+@pytest.mark.parametrize("case", LAUNCHES)
+def test_each_launch_goes_through_the_seam(stand_in_card, case):
+    """Each call into a library is one of its wrapper's declared symbols,
+    bound once with its declared types and the stream's, given as many
+    arguments and the current stream last, and counted once (and in
+    ``launches_tc`` on the tensor cores)."""
+    counter, call, symbols, tc = LAUNCHES[case]
+    lib = MODULES[counter.__name__]._LIB
+    for _ in range(2):
+        n = counter.launches
+        n_tc = getattr(counter, "launches_tc", 0)
+        call()
+        stand_in = stand_in_card[lib.name]
+        calls = stand_in.calls[-len(symbols):]
+        assert [c[0] for c in calls] == symbols
+        for symbol, args, argtypes in calls:
+            assert argtypes == [*lib.args[symbol], ctypes.c_void_p]
+            assert len(args) == len(argtypes) and args[-1] == STREAM
+        assert counter.launches == n + len(symbols)
+        if hasattr(counter, "launches_tc"):
+            assert counter.launches_tc == n_tc + tc * len(symbols)
+    assert sorted(stand_in.bound) == sorted(set(symbols))
+    assert len(stand_in.calls) == 2 * len(symbols)
+
+
+@pytest.mark.parametrize("name,symbol", [
+    (name, symbol) for name, mod in MODULES.items() for symbol in mod._LIB.args])
+def test_argument_tables_match_the_sources(name, symbol):
+    """Each declared symbol is a C function of ``csrc/<name>.cu`` whose
+    parameters are the table's types and then the stream (pointers as
+    ``c_void_p``, ``int`` and ``float`` as themselves)."""
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    found = re.search(rf"\bint\s+{symbol}\s*\(([^)]*)\)", source)
+    assert found, symbol
+    types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    params = [" ".join(p.split()[:-1]) for p in found.group(1).split(",")]
+    assert [ctypes.c_void_p if "*" in p else types[p] for p in params] == \
+        [*MODULES[name]._LIB.args[symbol], ctypes.c_void_p]
+
+
+def test_a_cuda_error_raises_and_counts_nothing(stand_in_card):
+    frames, dark = torch.rand(2, 8, 8), torch.rand(8, 8)
+    hr.hedm_reduce(frames, dark)
+    stand_in_card["hedm_reduce"].err = 700
+    n = hr.hedm_reduce.launches
+    with pytest.raises(RuntimeError, match=r"hedm_reduce launch failed: "
+                       r"CUDA error 700 \(stand-in error\)"):
+        hr.hedm_reduce(frames, dark)
+    assert hr.hedm_reduce.launches == n
+
+
+def test_only_a_traced_call_reaches_the_op(stand_in_card):
+    """Untraced, the wrapper calls the launch function itself: the
+    profiler sees no ``repro_torch::`` op. Traced (here under the flop
+    counter), the call goes through the op, whose implementation is the
+    launch function: it launches, counts and is counted by its formula."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    q = torch.rand(1, 4, 2, 8).to(BF)
+    for traced in (False, True):
+        n = fa.flash_attention.launches
+        with contextlib.ExitStack() as stack:
+            counter = stack.enter_context(FlopCounterMode(display=False)) \
+                if traced else None
+            prof = stack.enter_context(
+                profile(activities=[ProfilerActivity.CPU]))
+            fa.flash_attention(q, q, q)
+        names = {e.name for e in prof.events()}
+        assert ("repro_torch::flash_attention" in names) == traced
+        assert fa.flash_attention.launches == n + 1
+        if traced:
+            assert counter.get_total_flops() == fa.flops(1, 4, 2, 8)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_a_cpu_call_loads_no_library(monkeypatch, name):
+    def refuse(lib):
+        raise AssertionError(f"{lib} loaded for a CPU call")
+    monkeypatch.setattr(_build, "load", refuse)
+    mod = MODULES[name]
+    wrapper = getattr(mod, name)
+    n = wrapper.launches
+    if name == "hedm_label":
+        mask = torch.zeros(2, 8, 8, dtype=torch.uint8)
+        mask[:, 2:4, 2:4] = 1
+        n_signal, n_spots, peaks = hl.hedm_label(mask, torch.ones(2, 8, 8))
+        assert list(n_spots) == [1, 1] and peaks.shape == (2, 3)
+    else:
+        args = {"hedm_reduce": (torch.rand(2, 8, 8), torch.rand(8, 8)),
+                "flash_attention": [torch.rand(1, 4, 2, 8)] * 3,
+                "mamba2_scan": _scan(8, 8, torch.float32),
+                "rwkv6_wkv": _wkv(16, torch.float32)}[name]
+        out = wrapper(*args)
+        ref = mod.reference(*args)
+        for a, b in zip(*((out, ref) if isinstance(out, tuple)
+                          else ((out,), (ref,)))):
+            assert torch.equal(a, b)
+    assert wrapper.launches == n

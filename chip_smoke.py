@@ -105,7 +105,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    d_model 2048 (128 experts of 768, 32/4 heads of 128) with 4 layers,
    deepseek-v2-lite at d_model 2048 (16 MLA heads, latent 512 + rope 64,
    64 experts of 1408) with 4 layers (1 dense, 3 MoE): the MLA prefill on
-   ``flash_fwd`` at hd 192; internvl2-2b at d_model 2048 with 4 layers,
+   ``flash_fwd`` at hd 192, the decode's MLA attention on ``mla_decode``'s
+   CUDA-core kernel (once an MLA layer a decode, none on the tensor
+   cores); internvl2-2b at d_model 2048 with 4 layers,
    256 image + 768 text tokens; relative error < 5e-3 (tests/test_serve.py's
    bound), MoE configs where nothing is dropped.
 8. The LM main path: ``repro_torch.launch.serve.main``, zamba2-7b at full
@@ -129,13 +131,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    layers, MLA, 64 experts of 1408, top 6, 2 shared; 15.7 B parameters
    in bf16), once the qwen3-moe session is freed: ``flash_attention``
    launched 8 x 27 times at hd 192, every launch on ``flash_fwd_tc``, and
-   no other kernel.
+   no other kernel; ``mla_decode`` once an MLA layer a decode step, every
+   launch on ``mla_decode_tc``.
    8e. The same for kimi-linear-48b-a3b at full width and depth (27
    layers: 20 KDA in plain PyTorch, 7 NoPE MLA; experts 0-63 of 256 of
    1024 held, as one card of a four-card expert-parallel deployment, top
    8 sigmoid-routed, 1 shared; 13.8 B parameters in bf16),
    once the deepseek session is freed: ``flash_attention`` launched 8 x 7
-   times at hd 192, every launch on ``flash_fwd_tc``, and no other kernel.
+   times at hd 192, every launch on ``flash_fwd_tc``, and no other kernel;
+   ``mla_decode`` 7 times a decode step, all on ``mla_decode_tc``.
 9. Timing of ``flash_attention``, ``mamba2_scan`` and ``rwkv6_wkv`` at the
    paths' shapes (S = L = 2048, bf16; the decay float32; attention at
    zamba2's (32, 32, 112), qwen3-moe's (32, 4, 128) and deepseek's (16,
@@ -155,6 +159,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (``torch.profiler``). K2 also at internvl2-2b's (1, 2048, 16, 8, 128)
    causal (SDPA with ``enable_gqa``) and hubert-xlarge's (1, 2048, 16, 16,
    80) non-causal (SDPA naming its backend).
+9b. ``mla_decode`` at the decode shapes of ``dsv2-lite.decode`` (128
+   slots, 16 heads) and ``kimi-linear-48b.decode256`` (256, 32), latent
+   512 + rope 64 over 8,192 positions, bf16, each slot's position drawn
+   as the cell's traffic draws it (``served_positions``): held to the plain
+   version (2^-8 of the largest |ck| and 2^-7 of itself), then its card
+   ms (CUDA events, median of 20; the tensor-core kernel's and the
+   combine's by ``torch.profiler``) beside its byte bound (the cached
+   positions' rows, q and the output once at 3.35 TB/s) and the plain
+   version's ms; at DeepSeek's shape also the CUDA-core kernel in float32.
 10. The frontends' inference on K2 at full width and depth, bf16, random
    weights from seed 0: internvl2-2b ``prefill_step`` of 256 image + 1024
    text tokens then 16 greedy decode steps (TTFT, decode tokens/s), then
@@ -714,6 +727,107 @@ def check_lm_kernels(np, torch, dev, lengths):
     return errs
 
 
+#: phase 9b: the decode shapes of the two serving cells (BENCHMARK.json),
+#: (slots, heads, latent, rope, capacity, prompt and answer tokens as their
+#: traffic draws them, log-uniform)
+MLA_CELLS = {
+    "dsv2-lite.decode": (128, 16, 512, 64, 8192, (128, 4096), (512, 4096)),
+    "kimi-linear-48b.decode256": (256, 32, 512, 64, 8192, (512, 2048),
+                                  (2048, 6144)),
+}
+
+
+def served_positions(np, rng, slots, prompt, answer, cap):
+    """Each slot's position at a decode step of a closed loop whose prompts
+    and answers are log-uniform over ``prompt`` and ``answer``: a request
+    is in a slot for as many steps as it answers, so a step finds requests
+    in proportion to their answers' lengths, each at a uniform point of its
+    answer. Returns int32 positions (cached length less 1)."""
+    def log_uniform(lo_hi, n):
+        lo, hi = np.log(lo_hi[0]), np.log(lo_hi[1])
+        return np.exp(rng.uniform(lo, hi, n)).astype(np.int64)
+    n = 100_000
+    p, a = log_uniform(prompt, n), log_uniform(answer, n)
+    pick = rng.choice(n, slots, p=a / a.sum())
+    pos = p[pick] + (rng.uniform(0, 1, slots) * a[pick]).astype(np.int64)
+    return np.minimum(pos, cap - 1).astype(np.int32)
+
+
+def mla_decode_phase(np, torch, dev):
+    """Phase 9b: ``mla_decode`` at the decode shapes of
+    ``dsv2-lite.decode`` and ``kimi-linear-48b.decode256`` (bf16, positions
+    drawn as their traffic draws them, seed 9): checked against the plain
+    version on the card, then timed (CUDA events, median of 20) beside its
+    byte bound (the cached positions' latent and rope rows, q and the output,
+    once, at 3.35 TB/s), the device time of its two kernels
+    (``torch.profiler``) and the plain version's. Also the CUDA-core kernel
+    on the same inputs in float32 at DeepSeek's shape. Returns a dict a
+    cell."""
+    from repro_torch.kernels import mla_decode as md
+    rng = np.random.default_rng(9)
+    out = {}
+    for cell, (B, H, R, E, cap, prompt, answer) in MLA_CELLS.items():
+        pos_np = served_positions(np, rng, B, prompt, answer, cap)
+        g = torch.Generator(device=dev).manual_seed(9)
+
+        def draw(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q_abs, q_rope = draw(B, H, R), draw(B, H, E)
+        ck, cr = draw(B, cap, R), draw(B, cap, E)
+        pos = torch.from_numpy(pos_np).to(dev)
+        scale = 192 ** -0.5
+        args = (q_abs, q_rope, ck, cr, pos, scale)
+        got = md.mla_decode(*args)
+        ref = md.reference(*args)
+        torch.cuda.synchronize()
+        big = float(ck.float().abs().max())
+        err = float((got.float() - ref.float()).abs().max())
+        excess = float(((got.float() - ref.float()).abs()
+                        - (2.0 ** -8 * big + 2.0 ** -7 * ref.float().abs()))
+                       .max())
+        if not excess <= 0:
+            raise AssertionError(f"phase 9b: mla_decode at {cell}'s shape "
+                                 f"differs from the plain version by "
+                                 f"{err:.3g} (atol 2^-8 max|ck| + 2^-7 "
+                                 f"|ref|)")
+        positions = md.attended(pos, cap)
+        nbytes = (positions * (R + E) + B * H * (R + E) + B * H * R) * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(torch, lambda: md.mla_decode(*args), 20)
+        parts = kernel_times(torch, lambda: md.mla_decode(*args),
+                             "mla_decode")
+        plain_ms = time_ms(torch, lambda: md.reference(*args), 5)
+        f32 = {}
+        if H == 16:
+            a32 = tuple(t.float() if t.is_floating_point() else t
+                        for t in args[:5]) + (scale,)
+            got32 = md.mla_decode(*a32)
+            ref32 = md.reference(*a32)
+            torch.cuda.synchronize()
+            f32 = {"ms": time_ms(torch, lambda: md.mla_decode(*a32), 5),
+                   "plain_ms": time_ms(torch, lambda: md.reference(*a32), 3),
+                   "err": float((got32 - ref32).abs().max())}
+            del a32, got32, ref32
+        r = {"B": B, "H": H, "mean_positions": positions / B,
+             "GB": nbytes / 1e9, "ms": ms, "bound_ms": bound_ms,
+             "share_of_bound": bound_ms / ms, "kernels_ms": parts,
+             "plain_ms": plain_ms, "err": err, "f32": f32}
+        print(f"[mla_decode] {cell}: B {B}, H {H}, mean cached "
+              f"{positions / B:.1f} of {cap}: card {ms:.4f} ms (by kernel "
+              f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}), "
+              f"byte bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB), "
+              f"{100 * bound_ms / ms:.1f}% of it; plain version "
+              f"{plain_ms:.3f} ms; max |diff| {err:.3g} (within 2^-8 "
+              f"max|ck| + 2^-7 |ref|); float32 (CUDA cores) "
+              f"{json.dumps(f32)}", flush=True)
+        out[cell] = r
+        del args, q_abs, q_rope, ck, cr, pos, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def device_time(torch, fn):
     """``fn()``'s result and, from ``torch.profiler``, the device seconds
     of all its CUDA activity and of its ``hedm_reduce`` kernels."""
@@ -928,7 +1042,13 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
         image = {"image_embeds": torch.from_numpy(np.random.default_rng(
             3).standard_normal((2, P, feat)).astype(np.float32)).to(dev)}
 
+    from repro_torch.kernels import mla_decode as md
+    mla_layers = cfg.n_layers if cfg.attention == "mla" else 0
+    launches = (md.mla_decode.launches, md.mla_decode.launches_tc)
+    decodes = []
+
     def prefill_decode_vs_forward():
+        decodes.append(1)
         ref = M.logits(params, cfg, M.forward(
             params, cfg, {"tokens": toks, **image}, inference=True)[0][:, -1])
         _, caches = prefill_step(params, cfg, {"tokens": toks[:, :-1],
@@ -971,6 +1091,15 @@ def check_full_width_prefill_decode(np, torch, dev, arch, n_layers):
     if not err < 5e-3:
         raise AssertionError(f"full-width prefill + decode vs forward: rel "
                              f"{err} (< 5e-3)")
+    mla = (md.mla_decode.launches - launches[0],
+           md.mla_decode.launches_tc - launches[1])
+    if mla != (len(decodes) * mla_layers, 0):
+        raise AssertionError(f"{cfg.name}: mla_decode launched {mla} "
+                             f"(all, tensor-core) over {len(decodes)} float32 "
+                             f"decodes of {mla_layers} MLA layers")
+    if mla_layers:
+        note += (f"; the decodes' MLA attention on mla_decode_cc (float32): "
+                 f"{mla[0]} launches")
     what = (f"{P} image + {S - P} text tokens" if image else f"S={S}")
     print(f"[check] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
           f"float32, {what}: prefill + decode vs forward rel {err:.3g} "
@@ -994,9 +1123,22 @@ def serve_main_path(torch, dev, arch, want, prompts, zero_counts, counted,
     serve_s = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in counted}
     tc = {fn.__name__: fn.launches_tc for fn in tensor_core}
+    from repro_torch.kernels import mla_decode as md
+    mla = (md.mla_decode.launches, md.mla_decode.launches_tc)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, ph = served["cfg"], served["phases"]
     n_req = len(served["finished"])
+    steps = len(served["session"].timings["decode"])
+    mixers = cfg.layer_mixers or ("attn",) * cfg.n_layers
+    want_mla = steps * mixers.count("attn") if cfg.attention == "mla" else 0
+    if mla != (want_mla, want_mla):
+        raise AssertionError(f"the {cfg.name} path launched mla_decode "
+                             f"{mla} (all, tensor-core) times, expected "
+                             f"{want_mla}: once an MLA layer a decode step "
+                             f"({steps}), all on the tensor cores")
+    if want_mla:
+        print(f"[lm] {cfg.name}: mla_decode {mla[0]} launches over {steps} "
+              f"decode steps, all on mla_decode_tc", flush=True)
     print(f"[lm] {serve_s:.2f}s wall for {cfg.name} ({cfg.n_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.param_dtype}): init "
           f"{ph['init_s']:.2f}s, session {ph['serve_s']:.2f}s; decode "
@@ -1024,6 +1166,7 @@ def serve_main_path(torch, dev, arch, want, prompts, zero_counts, counted,
     del served
     gc.collect()
     torch.cuda.empty_cache()
+    counts["mla_decode"], tc["mla_decode"] = mla
     return counts, tc
 
 
@@ -2479,6 +2622,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     from repro_torch.kernels import _build
     from repro_torch.kernels import hedm_label as HL
     from repro_torch.kernels import hedm_reduce as hr
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels.ops import (flash_attention, hedm_reduce,
                                          mamba2_scan, rwkv6_wkv)
     from repro_torch.launch import serve as launch_serve
@@ -2489,6 +2633,7 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
         for fn in counted:
             fn.launches = 0
         HL.hedm_label.launches = 0
+        md.mla_decode.launches = md.mla_decode.launches_tc = 0
         for fn in tensor_core:
             fn.launches_tc = 0
 
@@ -2746,6 +2891,10 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
     timed["flash_attention_deepseek_v2_lite"]["launches"] = \
         ds_launches["flash_attention"]
 
+    # 9b. mla_decode at both serving cells' decode shapes
+    mla_timed = mla_decode_phase(np, torch, dev)
+    mla_launches = ds_launches["mla_decode"] + km_launches["mla_decode"]
+
     # 10. the frontends' inference on K2 at full width and depth
     fe_launches = frontend_inference(np, torch, dev, zero_counts, counted,
                                      tensor_core)
@@ -2824,6 +2973,14 @@ def main(n_frames=FRAMES, grid_points=GRID_POINTS):
             **({"sharded_launches": sharded_launches,
                 "sharded_launches_tc": sharded_launches}
                if name == "flash_attention" else {})})
+    kernels.append({
+        "name": "mla_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/mla_decode.cu",
+        "replaces": "none: the reference's MLA decode is plain jnp "
+                    "(src/repro/models/attention.py::mla_decode)",
+        "launches": mla_launches, **mla_timed["dsv2-lite.decode"],
+        "bound_by": "bytes", "library_ms": None,
+        "at_kimi_shape": mla_timed["kimi-linear-48b.decode256"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

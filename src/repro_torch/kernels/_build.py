@@ -14,9 +14,10 @@ Each build writes the compiler's output (``-Xptxas=-v``: registers, shared
 memory, spills) beside the library as ``<name>-<hash>.log``.
 
 A wrapper (``hedm_reduce``, ``flash_attention``, ``mamba2_scan``,
-``rwkv6_wkv``, ``hedm_label``) keeps its checks and limits, its plain
-version (``reference``), its dispatch rule, its FLOP count and the order in
-which it packs pointers and sizes. The rest is here, once:
+``rwkv6_wkv``, ``hedm_label``, ``mla_decode``) keeps its checks and
+limits, its plain version (``reference``), its dispatch rule, its FLOP
+count and the order in which it packs pointers and sizes. The rest is
+here, once:
 
 * :func:`on_card` is the device prologue: a CPU input runs the plain
   version, a CUDA input must be contiguous, any other device raises.
@@ -53,7 +54,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
-from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils._python_dispatch import (_disable_current_modes,
+                                          _get_current_dispatch_mode)
 from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -243,18 +245,27 @@ class Library:
 
 
 def op(name: str, schema: str, launch: Callable, fake: Callable,
-       flops: Callable) -> Callable:
+       flops: Callable, raw: bool = False) -> Callable:
     """Register ``launch`` as the dispatcher op ``repro_torch::<name>`` of
     ``schema``, with ``fake`` as its fake implementation and ``flops`` as
     its FLOP formula: ``flops`` takes the schema's arguments with each
-    tensor replaced by its shape. Returns the wrapper's entry, which takes
-    the schema's arguments: the op when :func:`traced` says the call is
-    traced, else ``launch`` itself."""
+    tensor replaced by its shape or, with ``raw``, the tensors themselves
+    (for work that depends on their values; it runs with no dispatch mode
+    active, so the modes do not count what it computes). Returns the
+    wrapper's entry, which takes the schema's arguments: the op when
+    :func:`traced` says the call is traced, else ``launch`` itself."""
     custom = torch.library.custom_op(f"repro_torch::{name}", launch,
                                      mutates_args=(), schema=schema)
     custom.register_fake(fake)
-    register_flop_formula(getattr(torch.ops.repro_torch, name))(
-        lambda *args, out_shape=None, **kwargs: flops(*args, **kwargs))
+    if raw:
+        def formula(*args, out_val=None, **kwargs):
+            with _disable_current_modes():
+                return flops(*args, **kwargs)
+    else:
+        def formula(*args, out_shape=None, **kwargs):
+            return flops(*args, **kwargs)
+    register_flop_formula(getattr(torch.ops.repro_torch, name),
+                          get_raw=raw)(formula)
 
     def run(*args):
         return (custom if traced(*args) else launch)(*args)

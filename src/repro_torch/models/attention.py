@@ -18,9 +18,13 @@ kernel takes them: q = [q_nope, q_rope], k = [k_nope, k_rope] (the rope key
 shared by every head), v zero-padded to that width, and the padded columns
 of the output (exactly 0) cut off. On the CPU a prompt of
 ``BLOCKED_THRESHOLD`` tokens or more takes :func:`blocked_mla_core`, where
-the reference does. MLA decode is the absorbed form in plain PyTorch, as
-the reference computes it outside Pallas: the cache holds only the latent
-``c_kv`` and the rope key.
+the reference does. MLA decode is the absorbed form, as the reference
+computes it: the cache holds only the latent ``c_kv`` and the rope key,
+and the attention over it goes through
+`repro_torch.kernels.ops.mla_decode` (a flash-decode kernel over each
+slot's cached positions on the card; the reference's arithmetic, its plain
+version, on the CPU). Over tp-split latent caches the decode keeps its
+plain code.
 
 Training (``use_kernels=False``, which ``model.loss_fn`` passes) takes the
 reference's own XLA paths instead, in plain PyTorch: ``grouped_sdpa`` over a
@@ -683,21 +687,17 @@ def mla_decode(params, cfg: ModelConfig, x: torch.Tensor,
 def _mla_absorbed(params, cfg: ModelConfig, q_nope, q_rope, ck, cr,
                   pos: torch.Tensor) -> torch.Tensor:
     """The absorbed attention of :func:`mla_decode` over the latent caches
-    ``ck`` (B,cap,r) and ``cr`` (B,cap,rope) after this token's write."""
+    ``ck`` (B,cap,r) and ``cr`` (B,cap,rope) after this token's write: the
+    attention core over each slot's cached positions through
+    `repro_torch.kernels.ops.mla_decode` (its kernel on the card, its plain
+    version on the CPU), then W_uv and wo."""
     m = cfg.mla
     B = q_nope.shape[0]
     H, r = cfg.n_heads, m.kv_lora_rank
-    cap = ck.shape[1]
     w_uk = params["w_uk"].reshape(r, H, m.qk_nope_head_dim)
     q_abs = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], w_uk)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    scores = (torch.einsum("bhr,btr->bht", q_abs.float(), ck.float())
-              + torch.einsum("bhe,bte->bht", q_rope[:, 0].float(),
-                             cr.float())) * scale
-    valid = torch.arange(cap, device=q_nope.device)[None, :] <= pos[:, None]
-    scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(ck.dtype)
-    lat = torch.einsum("bht,btr->bhr", probs, ck)           # latent context
+    lat = ops.mla_decode(q_abs, q_rope[:, 0], ck, cr, pos, scale)  # latent
     w_uv = params["w_uv"].reshape(r, H, m.v_head_dim)
     return torch.einsum("bhr,rhe->bhe", lat, w_uv).reshape(
         B, 1, H * m.v_head_dim) @ params["wo"]

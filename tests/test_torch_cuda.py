@@ -22,9 +22,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hedm_label as HL
 from repro_torch.kernels import hedm_reduce as port
 from repro_torch.kernels import mamba2_scan as ms
+from repro_torch.kernels import mla_decode as md
 from repro_torch.kernels import rwkv6_wkv as wk
 from repro_torch.kernels.ops import (flash_attention, hedm_reduce,
-                                     mamba2_scan, rwkv6_wkv)
+                                     mamba2_scan, mla_decode, rwkv6_wkv)
 from repro_torch.models import model as M
 from repro_torch.models import rwkv6 as rw
 from repro_torch.serve.engine import Request, ServeSession, prefill_step
@@ -783,8 +784,9 @@ def test_qwen3_moe_session_on_card_matches_cpu(card):
 
 def test_deepseek_session_on_card_matches_cpu(card):
     """The same for the deepseek-v2-lite smoke config (MLA prefill through
-    the flash-attention kernel, the absorbed decode over the latent
-    caches)."""
+    the flash-attention kernel, the absorbed decode over the latent caches
+    through ``mla_decode``'s CUDA-core kernel in float32, once an MLA layer
+    a decode step, against its plain version on the CPU)."""
     _session_on_card_matches_cpu(card, "deepseek_v2_lite_16b")
 
 
@@ -795,15 +797,19 @@ def _session_on_card_matches_cpu(card, arch):
     on_card.load_state_dict(cpu.state_dict())
     served = {}
     for where, params in [("cpu", cpu), ("cuda", on_card)]:
+        n = md.mla_decode.launches
         sess = ServeSession(params, cfg, batch_slots=2, capacity=32,
                             device=where)
         rng = np.random.default_rng(3)
-        for i, n in enumerate((11, 5, 17, 8)):
-            sess.submit(Request(i, rng.integers(0, cfg.vocab, n,
+        for i, n_tok in enumerate((11, 5, 17, 8)):
+            sess.submit(Request(i, rng.integers(0, cfg.vocab, n_tok,
                                                 dtype=np.int32), 6))
         served[where] = {r.request_id: r.generated
                          for r in sess.run_to_completion()}
         assert sess.nonfinite_logits == 0
+        mla = cfg.attention == "mla" and where == "cuda"
+        assert md.mla_decode.launches - n == (
+            cfg.n_layers * len(sess.timings["decode"]) if mla else 0)
     assert served["cuda"] == served["cpu"] and len(served["cpu"]) == 4
 
 
@@ -840,6 +846,181 @@ def test_service_driver_on_card(card):
         ref = T.pack_reduced(T.reduce_frames(frames, dark, device="cpu"))
         assert all(o[name].tobytes() == ref.tobytes()
                    for o in out["outputs"].values())
+
+
+# ---------------------------------------------------------------------------
+# MLA decode (the absorbed attention over the latent caches) on the card
+# ---------------------------------------------------------------------------
+
+#: the cached lengths the kernel's edges and the served cells give: one
+#: position, a 32-position tile's edges, a part's (512 at H 16, 1,024 at
+#: H 32), dsv2-lite.decode's mean, the capacity's edge and past it
+MLA_CAP = 8192
+MLA_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 511, 513, 1025, 2300, 8191, 8192,
+               MLA_CAP + 7)
+#: (latent R, rope E): DeepSeek-V2-Lite's and Kimi-Linear's, the smoke
+#: configs'
+MLA_WIDTHS = ((512, 64), (32, 16))
+
+
+def _mla_decode_inputs(card, B, H, R, E, dtype, lengths, cap=MLA_CAP,
+                       seed=0):
+    """q_abs, q_rope, ck, cr with N(0, 1) entries drawn on the card from
+    ``seed``, and pos: slot b's cached length is lengths[b % len] (pos
+    is that less 1: past the capacity the slot reads all of it)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=card).to(dtype)
+    pos = torch.tensor([lengths[b % len(lengths)] - 1 for b in range(B)],
+                       dtype=torch.int32, device=card)
+    return draw(B, H, R), draw(B, H, E), draw(B, cap, R), draw(B, cap, E), pos
+
+
+def _mla_scale(R, E):
+    """The served configs' 1/sqrt(q/k head dim): 192 at 512 + 64, the smoke
+    configs' 48 at 32 + 16."""
+    return (192 if R == 512 else 48) ** -0.5
+
+
+def _assert_mla_close(out, q_abs, q_rope, ck, cr, pos, scale):
+    """The kernel against the plain version on the same inputs.
+
+    float32: the same arithmetic summed in another order. Each score sums
+    R + E products, each rounded within 2^-24 of itself, so a reordered
+    score differs by at most ~(R + E) 2^-24 of the sum of its terms'
+    magnitudes, ~2e-5 at R + E = 576 for these N(0, 1) inputs after the
+    scale; the latent, a mean of the cache's rows weighted by
+    probabilities that move by that much relative, is held within 1e-5 of
+    the largest |ck| and 1e-5 of itself.
+
+    bfloat16: the kernel rounds each unnormalised probability to bf16, the
+    plain version the normalised one, each within 2^-9 of the value it
+    rounds: the two probabilities of a position differ by at most 2^-8 of
+    it, so the latent (a probability-weighted sum of cache rows) by at most
+    2^-8 of the largest |ck|; both round the latent to bf16, one ulp apart
+    at most: 2^-7 of itself."""
+    ref = md.reference(q_abs, q_rope, ck, cr, pos, scale)
+    torch.cuda.synchronize()
+    big = float(ck.float().abs().max())
+    if ck.dtype == torch.float32:
+        assert_close(out, ref.float(), 1e-5 * big, 1e-5)
+    else:
+        assert_close(out, ref.float(), 2.0 ** -8 * big, 2.0 ** -7)
+    assert out.dtype == ck.dtype and out.shape == q_abs.shape
+
+
+@pytest.mark.parametrize("B", (1, 7, 128, 256))
+@pytest.mark.parametrize("H", (16, 32))
+@pytest.mark.parametrize("widths", MLA_WIDTHS, ids=str)
+@pytest.mark.parametrize("dtype", BOTH)
+def test_mla_decode_kernel_matches_plain_version(card, B, H, widths, dtype):
+    """Every length of ``MLA_LENGTHS`` mixed in one batch (one of them at B
+    1) over a capacity of 8,192: bf16 on ``mla_decode_tc``, float32 on
+    ``mla_decode_cc``, one library call each."""
+    R, E = widths
+    dt_ = getattr(torch, dtype)
+    args = _mla_decode_inputs(card, B, H, R, E, dt_, MLA_LENGTHS[::-1]
+                              if B == 1 else MLA_LENGTHS, seed=B + H + R)
+    n, n_tc = md.mla_decode.launches, md.mla_decode.launches_tc
+    out = mla_decode(*args, _mla_scale(R, E))
+    torch.cuda.synchronize()
+    assert md.mla_decode.launches == n + 1
+    assert md.mla_decode.launches_tc == n_tc + (dtype == "bfloat16")
+    _assert_mla_close(out, *args, _mla_scale(R, E))
+
+
+@pytest.mark.parametrize("length", MLA_LENGTHS)
+@pytest.mark.parametrize("dtype", BOTH)
+def test_mla_decode_one_slot_at_each_length(card, length, dtype):
+    """B 1 at each cached length, DeepSeek-V2-Lite's widths."""
+    args = _mla_decode_inputs(card, 1, 16, 512, 64, getattr(torch, dtype),
+                              (length,), seed=length)
+    out = mla_decode(*args, _mla_scale(512, 64))
+    _assert_mla_close(out, *args, _mla_scale(512, 64))
+
+
+@pytest.mark.parametrize("H", (1, 4, 20, 48))
+def test_mla_decode_any_head_count(card, H):
+    """Head counts that fill no 16-row tile, or more than one block's 32
+    rows (bf16 on the tensor cores; heads past H are zero rows)."""
+    args = _mla_decode_inputs(card, 5, H, 512, 64, torch.bfloat16,
+                              (3, 700, 1500, 2049, 4100), cap=4096, seed=H)
+    n_tc = md.mla_decode.launches_tc
+    out = mla_decode(*args, _mla_scale(512, 64))
+    assert md.mla_decode.launches_tc == n_tc + 1
+    _assert_mla_close(out, *args, _mla_scale(512, 64))
+
+
+@pytest.mark.parametrize("dtype,R,E,tc", [
+    ("bfloat16", 512, 64, True), ("bfloat16", 32, 16, True),
+    ("bfloat16", 64, 16, False), ("float32", 512, 64, False),
+    ("float32", 40, 8, False)])
+def test_mla_decode_dispatch(card, dtype, R, E, tc):
+    """bf16 at the built widths takes ``mla_decode_tc``; float32, and bf16
+    at other widths, ``mla_decode_cc``: both counted in ``launches``, the
+    first also in ``launches_tc``; both match the plain version."""
+    args = _mla_decode_inputs(card, 3, 16, R, E, getattr(torch, dtype),
+                              (1, 600, 1200), cap=1536, seed=R + E)
+    n, n_tc = md.mla_decode.launches, md.mla_decode.launches_tc
+    out = mla_decode(*args, 0.1)
+    assert md.on_tensor_cores(*args[:4]) == tc
+    assert (md.mla_decode.launches, md.mla_decode.launches_tc) == \
+        (n + 1, n_tc + tc)
+    _assert_mla_close(out, *args, 0.1)
+
+
+def test_mla_decode_takes_strided_queries(card):
+    """q_abs as the decode's einsum leaves it (strided (B, H, R) over an
+    (H, B, R) buffer) is made contiguous for the kernel; the caches must
+    be contiguous."""
+    q_abs, q_rope, ck, cr, pos = _mla_decode_inputs(
+        card, 4, 16, 512, 64, torch.bfloat16, (9, 900), cap=1024)
+    strided = q_abs.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    out = mla_decode(strided, q_rope, ck, cr, pos, 0.1)
+    _assert_mla_close(out, q_abs, q_rope, ck, cr, pos, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mla_decode(q_abs, q_rope, ck[:, ::2], cr[:, ::2], pos, 0.1)
+
+
+def _bf16_mla_smoke():
+    from repro_torch.configs.base import with_overrides
+    return with_overrides(get_smoke_config("deepseek_v2_lite_16b"),
+                          param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+def test_mla_session_goes_through_the_kernel_every_decode_step(card):
+    """A 4-request bf16 ``ServeSession`` on the deepseek-v2-lite smoke
+    config (latent 32, rope 16): ``mla_decode`` launches once an MLA layer
+    a decode step, every launch on the tensor cores, and no logit is
+    non-finite. (The float32 session of the same config is held to the
+    plain version on CPU copies, token for token, by
+    ``test_deepseek_session_on_card_matches_cpu``.)"""
+    cfg = _bf16_mla_smoke()
+    params = M.init_model(torch.Generator(device=card).manual_seed(0), cfg)
+    n, n_tc = md.mla_decode.launches, md.mla_decode.launches_tc
+    sess = ServeSession(params, cfg, batch_slots=2, capacity=64, device=card)
+    rng = np.random.default_rng(5)
+    for i, length in enumerate((11, 5, 40, 8)):
+        sess.submit(Request(i, rng.integers(0, cfg.vocab, length,
+                                            dtype=np.int32), 12))
+    done = sess.run_to_completion()
+    want = cfg.n_layers * len(sess.timings["decode"])
+    assert want > 0 and len(done) == 4
+    assert (md.mla_decode.launches - n,
+            md.mla_decode.launches_tc - n_tc) == (want, want)
+    assert sess.nonfinite_logits == 0
+
+
+def test_mla_decode_refuses_inputs_that_require_grad(card):
+    args = _mla_decode_inputs(card, 2, 16, 32, 16, torch.float32, (5, 9),
+                              cap=16)
+    q = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        mla_decode(q, *args[1:], 0.1)
+    with torch.no_grad():
+        mla_decode(q, *args[1:], 0.1)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ devices, as tests/test_roofline.py runs it, killed at 240 s:
   caches follow the reference's ``cache_pspecs``;
 * (g) the kernels' seam (`repro_torch.kernels._build`): the four ops keep
   their schemas and formulas; each symbol's argument table matches its C
-  signature; a CPU call loads no library; on a stand-in library and card, each of the five wrappers launches only symbols it
+  signature; a CPU call loads no library; on a stand-in library and card, each of the six wrappers launches only symbols it
   declares, with as many arguments as declared and the stream last,
   binds each once, counts each call, raises on a CUDA error, and reaches
   the dispatcher op only when traced.
@@ -60,6 +60,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hedm_label as hl
 from repro_torch.kernels import hedm_reduce as hr
 from repro_torch.kernels import mamba2_scan as ms
+from repro_torch.kernels import mla_decode as md
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_wkv as wk
 from repro_torch.launch import dryrun
@@ -685,6 +686,12 @@ def _scan(P, N, dtype):
     return x, torch.rand(1, 8, 2) * 0.1, -torch.rand(2), Bm, Cm
 
 
+def _mla(R, E, dtype):
+    return (torch.rand(2, 4, R).to(dtype), torch.rand(2, 4, E).to(dtype),
+            torch.rand(2, 16, R).to(dtype), torch.rand(2, 16, E).to(dtype),
+            torch.tensor([3, 20], dtype=torch.int32), 0.25)
+
+
 def _label(frames_dtype, chunk_pixels=hl.CHUNK_PIXELS):
     """The labeler's two passes on two 8x8 frames in chunks of at most
     ``chunk_pixels``: pass 1, then pass 2 for one spot and two."""
@@ -723,6 +730,12 @@ LAUNCHES = {
                     ["rwkv6_wkv_bf16_tc"], True),
     "wkv-bf16": (wk.rwkv6_wkv, lambda: wk.rwkv6_wkv(*_wkv(8, BF)),
                  ["rwkv6_wkv_bf16"], False),
+    "mla-f32": (md.mla_decode, lambda: md.mla_decode(
+        *_mla(32, 16, torch.float32)), ["mla_decode_f32"], False),
+    "mla-bf16-tc": (md.mla_decode, lambda: md.mla_decode(*_mla(32, 16, BF)),
+                    ["mla_decode_bf16_tc"], True),
+    "mla-bf16": (md.mla_decode, lambda: md.mla_decode(*_mla(40, 8, BF)),
+                 ["mla_decode_bf16"], False),
     "label-f32": (hl.hedm_label, lambda: _label(torch.float32),
                   ["hedm_label_chunk", "hedm_label_weigh_f32"], False),
     "label-u16": (hl.hedm_label, lambda: _label(torch.uint16),
@@ -735,7 +748,7 @@ LAUNCHES = {
                           "hedm_label_chunk", "hedm_label_weigh_f64"],
                          False)}
 MODULES = {"hedm_reduce": hr, "flash_attention": fa, "mamba2_scan": ms,
-           "rwkv6_wkv": wk, "hedm_label": hl}
+           "rwkv6_wkv": wk, "hedm_label": hl, "mla_decode": md}
 
 
 class _StandIn:
@@ -869,7 +882,8 @@ def test_a_cpu_call_loads_no_library(monkeypatch, name):
         args = {"hedm_reduce": (torch.rand(2, 8, 8), torch.rand(8, 8)),
                 "flash_attention": [torch.rand(1, 4, 2, 8)] * 3,
                 "mamba2_scan": _scan(8, 8, torch.float32),
-                "rwkv6_wkv": _wkv(16, torch.float32)}[name]
+                "rwkv6_wkv": _wkv(16, torch.float32),
+                "mla_decode": _mla(32, 16, torch.float32)}[name]
         out = wrapper(*args)
         ref = mod.reference(*args)
         for a, b in zip(*((out, ref) if isinstance(out, tuple)
